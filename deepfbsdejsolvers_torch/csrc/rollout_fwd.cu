@@ -1,0 +1,121 @@
+// Kernel B1: the whole N-step forward of the hoisted Merton global rollout.
+//
+// Replaces the Pallas kernel of the JAX package's ops/pallas_rollout.py,
+// make_fused_rollout -> _make_fwd_kernel(save)._fwd_kernel (its call site is
+// _fwd_call).
+//
+// What bounds it on an H100: arithmetic.  Per path and step it does about
+// 2H² + 10H FLOPs of the Γ head, 2H tanhf and three degree-7 Clenshaw
+// evaluations (~1.2 kFLOP at H = 21), and it moves 16 bytes (dW and J read,
+// the xs and ys residuals written): ~75 FLOP per byte, far above the card's
+// FP32 ridge of 67 TFLOP/s over 3.35 TB/s = 20 FLOP per byte.
+//
+// Design: one thread per path.  The carries x and y and the hidden
+// activations live in registers for the whole rollout; the head's weights
+// sit in shared memory, where every thread of a warp reads the same word at
+// the same time (a broadcast).  The three tables' rows of a step (768 bytes
+// at P = 8) are shared by all paths and come through the read-only cache.
+// The (N, B) noise and residual rows are read and written coalesced, one
+// word per thread per step.  After the weight load the threads never
+// communicate, so the kernel takes any N and any B: the ragged last block
+// simply has idle threads.  The TPU kernel's tile size, batch % TILE == 0
+// and its N·TILE VMEM envelope do not carry over.
+#include "rollout_common.cuh"
+
+namespace rollout {
+
+constexpr int FWD_THREADS = 128;
+
+template <int H>
+__global__ void __launch_bounds__(FWD_THREADS)
+fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
+           const float* __restrict__ cc, const float* __restrict__ pc,
+           const float* __restrict__ zc, const float* __restrict__ lo,
+           const float* __restrict__ hi, const float* __restrict__ w1,
+           const float* __restrict__ b1, const float* __restrict__ w2,
+           const float* __restrict__ b2, const float* __restrict__ w3,
+           const float* __restrict__ y0, float* __restrict__ xn,
+           float* __restrict__ yn, float* __restrict__ xs,
+           float* __restrict__ ys, int n, int batch, int p, Consts c,
+           float x0) {
+  using L = Head<H>;
+  __shared__ float sw[L::SIZE];
+  load_head<H>(sw, w1, b1, w2, b2, w3);
+  __syncthreads();
+  const int b = blockIdx.x * FWD_THREADS + threadIdx.x;
+  if (b >= batch) return;
+  const bool save = xs != nullptr;
+  float x = x0;
+  float y = __ldg(y0);
+  float h1[H], h2[H];
+  for (int i = 0; i < n; ++i) {
+    const size_t off = (size_t)i * batch + b;
+    if (save) xs[off] = x;
+    const float dwr = __ldg(dw + off);
+    const float jv = __ldg(jr + off);
+    const Piece pk = locate(x, __ldg(lo + i), __ldg(hi + i), p);
+    const size_t row = ((size_t)i * p + pk.k) * D;
+    const float comp = clenshaw(cc + row, pk.t);
+    hidden_layers<H>(sw, c.time_scale * (float)i, x, jv, h1, h2);
+    float gam = 0.0f;
+#pragma unroll
+    for (int o = 0; o < H; ++o) gam += h2[o] * sw[L::W3 + o];
+    y = y * c.growth + gam - comp;
+    y = y + clenshaw(zc + row, pk.t) * dwr;
+    const float a = clenshaw(pc + row, pk.t);
+    if (save) ys[off] = y;
+    const float e = 1.0f + expm1_acc(c.drift + c.sigma * dwr + jv);
+    x = x * e + (c.a_lin * fabsf(y - a)) * c.dt;
+  }
+  xn[b] = x;
+  yn[b] = y;
+}
+
+template <int H>
+cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
+                       const float* pc, const float* zc, const float* lo,
+                       const float* hi, const float* w1, const float* b1,
+                       const float* w2, const float* b2, const float* w3,
+                       const float* y0, float* xn, float* yn, float* xs,
+                       float* ys, int n, int batch, int p, Consts c, float x0,
+                       cudaStream_t stream) {
+  const int blocks = (batch + FWD_THREADS - 1) / FWD_THREADS;
+  fwd_kernel<H><<<blocks, FWD_THREADS, 0, stream>>>(
+      dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2, w3, y0, xn, yn, xs, ys, n,
+      batch, p, c, x0);
+  return cudaGetLastError();
+}
+
+}  // namespace rollout
+
+// C entry (bound with ctypes by ops/rollout.py b1_forward).  xs and ys may
+// be null: the residuals are then not written.  Returns the launch's
+// cudaError_t; cudaErrorInvalidValue for a hidden width not built here.
+extern "C" int rollout_fwd(const float* dw, const float* jr, const float* cc,
+                           const float* pc, const float* zc, const float* lo,
+                           const float* hi, const float* w1, const float* b1,
+                           const float* w2, const float* b2, const float* w3,
+                           const float* y0, float* xn, float* yn, float* xs,
+                           float* ys, int n, int batch, int n_pieces,
+                           int hidden, float time_scale, float growth,
+                           float a_lin, float dt, float sigma, float drift,
+                           float x0, void* stream) {
+  using namespace rollout;
+  if ((xs == nullptr) != (ys == nullptr) || n < 1 || batch < 1 ||
+      n_pieces < 1)
+    return (int)cudaErrorInvalidValue;
+  const Consts c{time_scale, growth, a_lin, dt, sigma, drift};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (hidden) {
+    case 8:
+      return (int)launch_fwd<8>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
+                                w3, y0, xn, yn, xs, ys, n, batch, n_pieces,
+                                c, x0, st);
+    case 21:
+      return (int)launch_fwd<21>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
+                                 w3, y0, xn, yn, xs, ys, n, batch, n_pieces,
+                                 c, x0, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

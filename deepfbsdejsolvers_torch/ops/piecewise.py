@@ -1,0 +1,124 @@
+"""Piecewise Chebyshev collocation: P pieces × local degree-(D-1) series.
+
+The same 64 degrees of freedom as a global degree-63 Chebyshev interpolant,
+arranged as P=8 local degree-7 series, evaluate in a piece lookup plus 2(D-1)
+Clenshaw FMAs per path.  Per piece the function is sampled at D Chebyshev
+points and the local Chebyshev coefficients come from the inverse of the
+collocation matrix T_k(t_i), which is sqrt(2)-conditioned at every degree.
+
+The per-path piece select is an exact gather (``coef[k]``), where the JAX
+package uses a one-hot matmul because gathers are slow on a TPU.  Piece
+index and interval ends are detached; points outside the interval clamp to
+its boundary, with derivative 0 past the edge.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _pw_tables(n_pieces: int, degree: int):
+    """Sample points (P*D,) in the global [0, 1] coordinate: D Chebyshev
+    points per piece."""
+    d = degree + 1
+    k = np.arange(d)
+    t_loc = -np.cos(np.pi * (k + 0.5) / d)
+    pieces = np.arange(n_pieces)
+    t_glob = ((pieces[:, None] + 0.5 * (t_loc[None, :] + 1.0))
+              / n_pieces).reshape(-1)
+    return t_glob.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _pw_cheb_fit(degree: int):
+    """Values-at-Chebyshev-points -> local Chebyshev coefficients map (D, D)."""
+    d = degree + 1
+    k = np.arange(d)
+    t_loc = -np.cos(np.pi * (k + 0.5) / d)
+    T = np.cos(np.arange(d)[None, :] * np.arccos(np.clip(t_loc[:, None],
+                                                         -1.0, 1.0)))
+    return np.linalg.inv(T).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _nodes_on(n_pieces: int, degree: int, device: torch.device):
+    """``_pw_tables`` on ``device``, copied once per device."""
+    return torch.as_tensor(_pw_tables(n_pieces, degree), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _fit_on(degree: int, device: torch.device):
+    """``_pw_cheb_fit`` on ``device``, copied once per device."""
+    return torch.as_tensor(_pw_cheb_fit(degree), device=device)
+
+
+def pw_nodes(x_lo: torch.Tensor, x_hi: torch.Tensor, n_pieces: int,
+             degree: int) -> torch.Tensor:
+    """Sample points on [x_lo, x_hi] (last axis, P*D points); ends detached."""
+    t = _nodes_on(n_pieces, degree, x_lo.device)
+    x_lo, x_hi = x_lo.detach(), x_hi.detach()
+    return x_lo[..., None] + (x_hi - x_lo)[..., None] * t
+
+
+def pw_fit(values: torch.Tensor, n_pieces: int, degree: int) -> torch.Tensor:
+    """Local Chebyshev coefficients (..., P, D) from values at the pw_nodes
+    points (..., P*D)."""
+    d = degree + 1
+    fit = _fit_on(degree, values.device)
+    v = values.reshape(values.shape[:-1] + (n_pieces, d))
+    return torch.matmul(v, fit.T)
+
+
+def _locate(coef: torch.Tensor, x: torch.Tensor, x_lo: torch.Tensor,
+            x_hi: torch.Tensor):
+    """(per-path coefficient rows (B, D), local t, s_raw, span)."""
+    p = coef.shape[-2]
+    x_lo, x_hi = x_lo.detach(), x_hi.detach()
+    span = torch.clamp(x_hi - x_lo, min=1e-6)
+    s_raw = (x - x_lo) / span
+    s = torch.clamp(s_raw, 0.0, 1.0) * p
+    k = torch.clamp(torch.floor(s), 0, p - 1).detach()
+    t = 2.0 * (s - k) - 1.0
+    return coef[k.long()], t, s_raw, span
+
+
+def _clenshaw(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """sum_k c[..., k] T_k(t) by Clenshaw; c (..., D), t like c[..., 0]."""
+    d = c.shape[-1]
+    b1 = torch.zeros_like(c[..., 0])
+    b2 = b1
+    for k in range(d - 1, 0, -1):
+        b1, b2 = c[..., k] + 2.0 * t * b1 - b2, b1
+    return c[..., 0] + t * b1 - b2
+
+
+def pw_eval(coef: torch.Tensor, x: torch.Tensor, x_lo: torch.Tensor,
+            x_hi: torch.Tensor) -> torch.Tensor:
+    """Evaluate one step's piecewise interpolant: coef (P, D), x (B,),
+    x_lo/x_hi scalars."""
+    c, t, _, _ = _locate(coef, x, x_lo, x_hi)
+    return _clenshaw(c, t)
+
+
+def pw_eval_with_deriv(coef: torch.Tensor, x: torch.Tensor,
+                       x_lo: torch.Tensor, x_hi: torch.Tensor):
+    """(value, d/dx value) sharing one select; the derivative is 0 where x
+    is clamped, as autograd of pw_eval gives."""
+    p = coef.shape[-2]
+    c, t, s_raw, span = _locate(coef, x, x_lo, x_hi)
+    d = c.shape[-1]
+    b1 = torch.zeros_like(t)
+    b2 = b1
+    db1 = torch.zeros_like(t)
+    db2 = db1
+    for j in range(d - 1, 0, -1):
+        b1, b2, db1, db2 = (c[..., j] + 2.0 * t * b1 - b2, b1,
+                            2.0 * b1 + 2.0 * t * db1 - db2, db1)
+    val = c[..., 0] + t * b1 - b2
+    dval = b1 + t * db1 - db2
+    inside = ((s_raw >= 0.0) & (s_raw <= 1.0)).to(x.dtype)
+    return val, dval * (2.0 * p / span) * inside

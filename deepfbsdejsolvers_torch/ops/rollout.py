@@ -1,0 +1,349 @@
+"""The hoisted Merton global rollout: plain loop and fused CUDA kernels.
+
+One training step of the hoisted global scheme runs, after the per-step
+tables are built (solvers/pricing.py ``_hoist_tables``), the N-step rollout
+
+    comp = cc_i(x);  Γ = MLP(i·time_scale, x, J)
+    y ← y − f(y)·dt + Γ − comp + z_i(x)·dW
+    x ← x·(1 + expm1_acc(drift + σ dW + J)) + aLin·|y − a_i(x)|·dt
+
+where cc_i, pc_i (the price a_i) and zc_i are piecewise Chebyshev tables
+(P pieces × D coefficients) on the step's interval [lo_i, hi_i].
+
+``rollout_plain`` is that loop written step by step in PyTorch and
+differentiated by autograd: the CPU path and the oracle the kernels are held
+against.  ``FusedRolloutOp`` is the operator the solver calls: on a
+CPU tensor it runs ``rollout_plain``; on a CUDA tensor it runs the whole
+forward as one kernel (B1, ``csrc/rollout_fwd.cu``) and, under autograd, the
+whole backward as one kernel plus a fixed-order reduction (B2,
+``csrc/rollout_bwd.cu``), behind the ``FusedRollout`` autograd function.
+There is no fallback from the kernels to the plain loop on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from deepfbsdejsolvers_torch.nets.mlp import mlp_apply
+from deepfbsdejsolvers_torch.ops.chebyshev import cheb_eval
+from deepfbsdejsolvers_torch.ops.piecewise import pw_eval
+
+# Hidden widths the kernels are instantiated for (csrc/rollout_common.cuh).
+KERNEL_WIDTHS = (8, 21)
+# Chebyshev coefficients per piece the kernels take (degree 7).
+KERNEL_COEFFS = 8
+# Paths per thread block of B2; fixes the layout of its partial sums.
+_B2_THREADS = 128
+
+
+def table_eval(coef: torch.Tensor, x: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """One step's hoisted table: (P, D) piecewise or (C,) Chebyshev."""
+    if coef.ndim == 2:
+        return pw_eval(coef, x, lo, hi)
+    return cheb_eval(coef, x, lo, hi)
+
+
+def rollout_plain(model, gam_params, y0, tables, dw, j,
+                  time_scale: float = 1.0, activation=torch.tanh):
+    """(x_N, y_N) of the hoisted global rollout, step by step.
+
+    ``tables`` holds "lo", "hi" (N,) and "cc", "pc", "zc" per step; dw and j
+    are (N, B).  Each step is the body of the global scheme's time loop with
+    the model's own callables (f, step), so autograd of this function is the
+    reference gradient."""
+    n, batch = dw.shape
+    x = model.init_x(batch, dw.device)
+    y = y0 * torch.ones((batch,), dtype=torch.float32, device=dw.device)
+    dt = model.dt
+    for i in range(n):
+        lo, hi = tables["lo"][i], tables["hi"][i]
+        t = torch.full_like(x, float(i)) * time_scale
+        gam = mlp_apply(gam_params, torch.stack([t, x, j[i]], -1),
+                        activation)[..., 0]
+        comp = table_eval(tables["cc"][i], x, lo, hi)
+        y = y - dt * model.f(y) + gam - comp
+        y = y + table_eval(tables["zc"][i], x, lo, hi) * dw[i]
+        x = model.step(i, x, dw[i], j[i], y,
+                       price=table_eval(tables["pc"][i], x, lo, hi))
+    return x, y
+
+
+def merton_form_constants(model):
+    """(r, a_lin, sigma, drift, x0) if the model has the exact Merton forms
+    the kernels bake in — f(y) = −r y, coupling(u) = aLin |u|, log-increments
+    drift + σ dW + J — else None.  The check probes the model's own
+    callables, so a model with other dynamics fails it even when the
+    attributes exist."""
+    try:
+        r = float(model.r)
+        sigma = float(model.sigma)
+        x0 = float(model.x0)
+        u = torch.tensor([-3.0, -1.0, 0.5, 2.0])
+        cu = np.asarray(model.coupling(u))
+        a_lin = float(cu[1])
+        if not np.allclose(cu, a_lin * np.abs(u.numpy()), rtol=1e-6,
+                           atol=1e-12):
+            return None
+        fu = np.asarray(model.f(u))
+        if not np.allclose(fu, -r * u.numpy(), rtol=1e-6, atol=1e-12):
+            return None
+        z = torch.zeros(())
+        one = torch.ones(())
+        two = torch.full((), 2.0)
+        inc = lambda a, b: float(model.uncoupled_log_increments(a, b))
+        drift = inc(z, z)
+        # The three on-axis points pin the affine coefficients, (1, 1)
+        # falsifies a dW·J cross term, (2, 0) and (0, 2) quadratic terms.
+        if not (np.isclose(inc(one, z), drift + sigma, rtol=1e-6)
+                and np.isclose(inc(z, one), drift + 1.0, rtol=1e-6)
+                and np.isclose(inc(one, one), drift + sigma + 1.0, rtol=1e-6)
+                and np.isclose(inc(two, z), drift + 2.0 * sigma, rtol=1e-6)
+                and np.isclose(inc(z, two), drift + 2.0, rtol=1e-6)):
+            return None
+        return r, a_lin, sigma, drift, x0
+    except Exception:
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """What the kernels bake in: the Merton constants, widths and the time
+    feature's scale."""
+
+    hidden: int
+    n_pieces: int
+    time_scale: float
+    r: float
+    a_lin: float
+    sigma: float
+    drift: float
+    x0: float
+    dt: float
+
+    def scalars(self) -> list:
+        """The float arguments of both C entry points, in order."""
+        f = ctypes.c_float
+        return [f(self.time_scale), f(1.0 + self.r * self.dt), f(self.a_lin),
+                f(self.dt), f(self.sigma), f(self.drift)]
+
+
+def _check(name, t, shape, device):
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_inputs(spec, weights, tables, dw, j):
+    """Shared validation of both kernels' inputs; returns (n, batch)."""
+    if dw.device.type != "cuda":
+        raise ValueError(f"the rollout kernels take CUDA tensors, got "
+                         f"{dw.device}")
+    if dw.ndim != 2 or dw.shape[0] < 1 or dw.shape[1] < 1:
+        raise ValueError(f"dw: expected (N, B) with N, B >= 1, got "
+                         f"{tuple(dw.shape)}")
+    n, batch = dw.shape
+    if n * batch >= 2**31:
+        raise ValueError(f"N·B = {n * batch} does not fit the kernels' "
+                         "32-bit path indices")
+    h, p, d, dev = spec.hidden, spec.n_pieces, KERNEL_COEFFS, dw.device
+    _check("j", j, (n, batch), dev)
+    _check("dw", dw, (n, batch), dev)
+    for name in ("cc", "pc", "zc"):
+        _check(name, tables[name], (n, p, d), dev)
+    _check("lo", tables["lo"], (n,), dev)
+    _check("hi", tables["hi"], (n,), dev)
+    for name, t, shape in zip(("W1", "b1", "W2", "b2", "W3"), weights,
+                              ((3, h), (h,), (h, h), (h,), (h, 1))):
+        _check(name, t, shape, dev)
+    return n, batch
+
+
+def _ptr(t):
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _lib(name, nptr, nint, nfloat):
+    """The kernel library with its C entry's argument types declared."""
+    from deepfbsdejsolvers_torch.ops import _build
+
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
+                   + [ctypes.c_float] * nfloat + [ctypes.c_void_p])
+    return fn
+
+
+def b1_forward(spec: KernelSpec, weights, y0, tables, dw, j, save: bool):
+    """Kernel B1: the whole N-step forward, one thread per path.
+
+    ``weights`` = (W1, b1, W2, b2, W3) with b3 already folded into
+    ``tables["cc"]``.  Returns (x_N, y_N, xs, ys); xs (x before each step)
+    and ys (y after each step's update) are (N, B) residuals for B2, or None
+    when ``save`` is false."""
+    n, batch = _check_inputs(spec, weights, tables, dw, j)
+    _check("y0", y0, (), dw.device)
+    fn = _lib("rollout_fwd", 17, 4, 7)
+    kw = dict(dtype=torch.float32, device=dw.device)
+    xn = torch.empty((batch,), **kw)
+    yn = torch.empty((batch,), **kw)
+    xs = torch.empty((n, batch), **kw) if save else None
+    ys = torch.empty((n, batch), **kw) if save else None
+    with torch.cuda.device(dw.device):    # launch on the tensors' card
+        stream = torch.cuda.current_stream(dw.device).cuda_stream
+        rc = fn(*map(_ptr, (dw, j, tables["cc"], tables["pc"], tables["zc"],
+                            tables["lo"], tables["hi"], *weights, y0, xn, yn,
+                            xs, ys)),
+                n, batch, spec.n_pieces, spec.hidden, *spec.scalars(),
+                ctypes.c_float(spec.x0), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"rollout_fwd: CUDA error {rc} at launch")
+    b1_forward.launches += 1
+    return xn, yn, xs, ys
+
+
+b1_forward.launches = 0
+
+
+def b2_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn, cyn):
+    """Kernel B2: the reverse adjoint replay over the saved (xs, ys), then a
+    second kernel that sums the per-block partials in block order.
+
+    Returns one flat vector: [dW2 (H·H, row h1 × column out) | db2 | dW3 |
+    db1 | dW1 rows t, x, j (3·H) | ȳ0 | table cotangents (N, 3, P, D) for
+    cc, pc, zc]."""
+    n, batch = _check_inputs(spec, weights, tables, dw, j)
+    for name, t, shape in (("xs", xs, (n, batch)), ("ys", ys, (n, batch)),
+                           ("x_N cotangent", cxn, (batch,)),
+                           ("y_N cotangent", cyn, (batch,))):
+        _check(name, t, shape, dw.device)
+    h, p = spec.hidden, spec.n_pieces
+    n_out = h * h + 6 * h + 1 + n * 3 * p * KERNEL_COEFFS
+    n_blocks = -(-batch // _B2_THREADS)
+    fn = _lib("rollout_bwd", 18, 4, 6)
+    kw = dict(dtype=torch.float32, device=dw.device)
+    partials = torch.empty((n_blocks, n_out), **kw)
+    out = torch.empty((n_out,), **kw)
+    with torch.cuda.device(dw.device):
+        stream = torch.cuda.current_stream(dw.device).cuda_stream
+        rc = fn(*map(_ptr, (dw, j, tables["cc"], tables["pc"], tables["zc"],
+                            tables["lo"], tables["hi"], *weights, xs, ys,
+                            cxn, cyn, partials, out)),
+                n, batch, p, h, *spec.scalars(), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"rollout_bwd: CUDA error {rc} at launch")
+    b2_backward.launches += 1
+    return out
+
+
+b2_backward.launches = 0
+
+
+def _fold_b3(cc, b3):
+    """cc with the Γ output bias folded into each piece's T_0 coefficient:
+    (Γ + b3) − comp == Γ − (comp − b3), so the kernels never see b3."""
+    ccf = cc.clone()
+    ccf[..., 0] -= b3[0]
+    return ccf
+
+
+class FusedRollout(torch.autograd.Function):
+    """B1 forward with residuals, B2 backward: the rollout's gradients with
+    respect to the Γ head, y0 and the three tables."""
+
+    @staticmethod
+    def forward(ctx, spec, w1, b1, w2, b2, w3, b3, y0, cc, pc, zc, lo, hi,
+                dw, j):
+        tables = {"cc": _fold_b3(cc, b3), "pc": pc, "zc": zc, "lo": lo,
+                  "hi": hi}
+        weights = (w1, b1, w2, b2, w3)
+        xn, yn, xs, ys = b1_forward(spec, weights, y0, tables, dw, j,
+                                    save=True)
+        ctx.spec = spec
+        ctx.save_for_backward(*weights, tables["cc"], pc, zc, lo, hi, dw, j,
+                              xs, ys)
+        return xn, yn
+
+    @staticmethod
+    def backward(ctx, gxn, gyn):
+        spec = ctx.spec
+        w1, b1, w2, b2, w3, ccf, pc, zc, lo, hi, dw, j, xs, ys = \
+            ctx.saved_tensors
+        gxn = torch.zeros_like(xs[0]) if gxn is None else gxn.contiguous()
+        gyn = torch.zeros_like(xs[0]) if gyn is None else gyn.contiguous()
+        tables = {"cc": ccf, "pc": pc, "zc": zc, "lo": lo, "hi": hi}
+        out = b2_backward(spec, (w1, b1, w2, b2, w3), tables, dw, j, xs, ys,
+                          gxn, gyn)
+        h, p, n = spec.hidden, spec.n_pieces, dw.shape[0]
+        o = h * h
+        dw2 = out[:o].view(h, h)
+        db2 = out[o:o + h]
+        dw3 = out[o + h:o + 2 * h].view(h, 1)
+        db1 = out[o + 2 * h:o + 3 * h]
+        dw1 = out[o + 3 * h:o + 6 * h].view(3, h)
+        dy0 = out[o + 6 * h]
+        tab = out[o + 6 * h + 1:].view(n, 3, p, KERNEL_COEFFS)
+        dcc, dpc, dzc = tab[:, 0], tab[:, 1], tab[:, 2]
+        db3 = -dcc[..., 0].sum().reshape(1)
+        return (None, dw1, db1, dw2, db2, dw3, db3, dy0, dcc, dpc, dzc,
+                None, None, None, None)
+
+
+class FusedRolloutOp:
+    """``rollout(gam_params, y0, tables, dw, j) -> (x_N, y_N)``: the plain
+    loop on CPU tensors, the B1/B2 kernels on CUDA tensors."""
+
+    def __init__(self, model, hidden: int, time_scale: float = 1.0,
+                 n_pieces: int = 8, degree: int = 7):
+        consts = merton_form_constants(model)
+        if consts is None:
+            raise ValueError("the fused rollout requires a Merton-form model "
+                             "(see merton_form_constants)")
+        if hidden not in KERNEL_WIDTHS:
+            raise ValueError(f"the fused rollout kernels are built for hidden "
+                             f"widths {KERNEL_WIDTHS}, got {hidden}")
+        if degree + 1 != KERNEL_COEFFS:
+            raise ValueError(f"the fused rollout kernels take degree "
+                             f"{KERNEL_COEFFS - 1} tables, got {degree}")
+        r, a_lin, sigma, drift, x0 = consts
+        self.model = model
+        self.spec = KernelSpec(hidden=hidden, n_pieces=n_pieces,
+                               time_scale=float(time_scale), r=r,
+                               a_lin=a_lin, sigma=sigma, drift=drift, x0=x0,
+                               dt=float(model.dt))
+
+    def plain(self, gam_params, y0, tables, dw, j):
+        """``rollout_plain`` with this operator's model and time scale."""
+        return rollout_plain(self.model, gam_params, y0, tables, dw, j,
+                             self.spec.time_scale)
+
+    def __call__(self, gam_params, y0, tables, dw, j):
+        if dw.device.type == "cpu":
+            return self.plain(gam_params, y0, tables, dw, j)
+        (w1, w2, w3), (b1, b2, b3) = gam_params["W"], gam_params["b"]
+        args = (w1, b1, w2, b2, w3, b3, y0, tables["cc"], tables["pc"],
+                tables["zc"], tables["lo"], tables["hi"])
+        args = tuple(a.contiguous() for a in args) + (dw.contiguous(),
+                                                      j.contiguous())
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            return FusedRollout.apply(self.spec, *args)
+        w1, b1, w2, b2, w3, b3, y0, cc, pc, zc, lo, hi, dw, j = args
+        tables = {"cc": _fold_b3(cc, b3), "pc": pc, "zc": zc, "lo": lo,
+                  "hi": hi}
+        xn, yn, _, _ = b1_forward(self.spec, (w1, b1, w2, b2, w3), y0,
+                                  tables, dw, j, save=False)
+        return xn, yn

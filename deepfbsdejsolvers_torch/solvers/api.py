@@ -1,0 +1,69 @@
+"""Reference-parity solver classes.
+
+``SolverGlobalFBSDE(math_model, lrate, ...).train(batchSize, batchSizeVal,
+num_epoch, num_epochExt) -> (listY0, duration)``, the surface of the
+reference's solver classes, over the functional core in
+:mod:`deepfbsdejsolvers_torch.solvers.pricing`.  Only the global scheme is
+ported so far.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
+from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
+from deepfbsdejsolvers_torch.solvers.train import (
+    TrainResult, fit, make_generator)
+
+
+class _SolverFacade:
+    scheme: str = ""
+
+    def __init__(self, math_model, lrate: float, hidden=(21, 21),
+                 activation: str = "tanh",
+                 compensator: CompensatorSpec = CompensatorSpec(),
+                 seed: int = 0, **solver_kw):
+        """``solver_kw`` passes through to :class:`PricingSolver`, e.g.
+        ``hoist=True``, ``fused_rollout=True`` and ``device`` ("cuda" by
+        default; the CPU only when asked for with ``device="cpu"``)."""
+        self.core = PricingSolver(
+            model=math_model, scheme=self.scheme, hidden=tuple(hidden),
+            activation=activation, compensator=compensator, **solver_kw,
+        )
+        self.math_model = math_model
+        self.lrate = lrate
+        self.seed = seed
+        self.listY0: list = []
+        self.lossList: list = []
+        self.duration: float = 0.0
+        self.durationList: list = []
+        self.params = None
+        self.result: Optional[TrainResult] = None
+
+    def train(self, batch_size: int, batch_size_val: int, num_epoch: int,
+              num_epoch_ext: int, verbose: bool = True) -> Tuple[list, float]:
+        params = self.core.init_params(make_generator("cpu", self.seed, 0))
+        res = fit(
+            loss_fn=self.core.build_loss(batch_size),
+            params=params,
+            seed=self.seed,
+            lrate=self.lrate,
+            num_epoch=num_epoch,
+            num_epoch_ext=num_epoch_ext,
+            val_loss_fn=self.core.build_loss(batch_size_val),
+            y0_fn=self.core.y0_estimate,
+            verbose=verbose,
+        )
+        self.result = res
+        self.params = res.params
+        self.listY0 = res.y0_history
+        self.lossList = res.loss_history
+        self.duration = res.duration
+        self.durationList = res.duration_history
+        return res.y0_history, res.duration
+
+
+class SolverGlobalFBSDE(_SolverFacade):
+    """Trainable-Y0 global deep-BSDE."""
+    scheme = "global"

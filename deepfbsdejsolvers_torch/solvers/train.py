@@ -1,0 +1,99 @@
+"""Training loop: Adam over ``num_epoch_ext`` outer epochs of ``num_epoch``
+inner gradient steps, with a validation loss and the Y0 read-out once per
+outer epoch.  Adam uses eps=1e-7 (the Keras default the reference trains
+with).  The noise of outer epoch k comes from generators seeded by
+(seed, k), so a run restarted at epoch k replays the same noise stream.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, List, Optional
+
+import numpy as np
+import torch
+
+from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+
+
+@dataclasses.dataclass
+class TrainResult:
+    """Trained params, per-outer-epoch Y0 / loss / cumulative seconds."""
+
+    params: Any
+    y0_history: List[float]
+    loss_history: List[float]
+    duration: float
+    duration_history: List[float]
+
+
+def make_generator(device, seed: int, *path: int) -> torch.Generator:
+    """A generator on ``device`` whose seed is a pure function of
+    (seed, path)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence([seed, *path]).generate_state(
+        1)[0]))
+    return g
+
+
+def make_adam(params, lrate: float) -> torch.optim.Adam:
+    return torch.optim.Adam(param_leaves(params), lr=lrate, eps=1e-7)
+
+
+def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
+              params) -> Callable:
+    """``step(generator) -> loss``: one gradient step on a fresh draw."""
+
+    def step(generator):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, generator)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def fit(loss_fn: Callable, params, seed: int, lrate: float, num_epoch: int,
+        num_epoch_ext: int, val_loss_fn: Optional[Callable] = None,
+        y0_fn: Optional[Callable] = None, verbose: bool = True
+        ) -> TrainResult:
+    """Train ``params`` (leaf tensors, updated in place) for num_epoch_ext
+    outer epochs of num_epoch Adam steps.
+
+    ``val_loss_fn(params, generator)`` is evaluated without gradients once
+    per outer epoch; ``y0_fn(params)`` extracts the current Y0.  Epoch k
+    draws its steps' noise from the generator seeded by (seed, 1, 2k) and
+    its validation noise from (seed, 1, 2k+1)."""
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    device = leaves[0].device
+    step = make_step(loss_fn, make_adam(params, lrate), params)
+    y0_hist: List[float] = []
+    loss_hist: List[float] = []
+    dur_hist: List[float] = []
+    duration = 0.0
+    for iout in range(num_epoch_ext):
+        gen = make_generator(device, seed, 1, 2 * iout)
+        t0 = time.perf_counter()
+        for _ in range(num_epoch):
+            last_loss = step(gen)
+        last = float(last_loss)          # waits for the device
+        duration += time.perf_counter() - t0
+        if val_loss_fn is not None:
+            with torch.no_grad():
+                obj = float(val_loss_fn(
+                    params, make_generator(device, seed, 1, 2 * iout + 1)))
+        else:
+            obj = last
+        y0 = (float(y0_fn(params).detach()) if y0_fn is not None
+              else float("nan"))
+        if verbose:
+            print(f" Error {obj:.6g}  elapsed time {duration:5.3f} s  "
+                  f"Y0 sofar {y0}  epoch {iout}")
+        y0_hist.append(y0)
+        loss_hist.append(obj)
+        dur_hist.append(duration)
+    return TrainResult(params, y0_hist, loss_hist, duration, dur_hist)

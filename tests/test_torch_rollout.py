@@ -1,0 +1,139 @@
+"""The fused rollout operator: its CPU path is the plain loop, its
+preconditions are enforced before anything touches CUDA, and the semantic
+Merton-form probe rejects dynamics the kernels do not implement."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from deepfbsdejsolvers_torch.models.merton import make_merton_default
+from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+from deepfbsdejsolvers_torch.ops import rollout as R
+from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
+from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
+from deepfbsdejsolvers_torch.solvers.train import make_generator
+
+CHEB64 = CompensatorSpec(x_interp="chebyshev", n_cheb=64)
+HOIST = dict(compensator=CHEB64, hoist=True, hoist_interp="piecewise")
+
+
+def _model(n=3):
+    return dataclasses.replace(make_merton_default(
+        jump_sampler="icdf", price_mode="chebyshev"), N=n)
+
+
+def _inputs(hidden=8, batch=300):
+    model = _model()
+    solver = PricingSolver(model, "global", hidden=(hidden, hidden),
+                           fused_rollout=True, device="cpu", **HOIST)
+    params = solver.init_params(make_generator("cpu", 1, 0))
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    dw, j = solver._prenoise(make_generator("cpu", 1, 1), batch)
+    tables = solver._hoist_tables(params, (dw, j))
+    return model, params, tables, dw, j
+
+
+def test_cpu_path_is_rollout_plain():
+    model, params, tables, dw, j = _inputs()
+    op = R.FusedRolloutOp(model, 8)
+    x1, y1 = op(params["gam"], params["uz"]["y0"], tables, dw, j)
+    x2, y2 = R.rollout_plain(model, params["gam"], params["uz"]["y0"],
+                             tables, dw, j)
+    assert torch.equal(x1, x2) and torch.equal(y1, y2)
+    g1 = torch.autograd.grad(torch.mean(y1 * x1), param_leaves(params),
+                             retain_graph=True)
+    g2 = torch.autograd.grad(torch.mean(y2 * x2), param_leaves(params))
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert R.b1_forward.launches == 0 and R.b2_backward.launches == 0
+
+
+def test_form_probe_accepts_merton_rejects_nonaffine_increments():
+    base = make_merton_default()
+
+    class CrossTerm:
+        def __getattr__(self, name):
+            return getattr(base, name)
+
+        def uncoupled_log_increments(self, dw, j):
+            return base.uncoupled_log_increments(dw, j) + 0.05 * dw * j
+
+    class QuadraticDW:
+        def __getattr__(self, name):
+            return getattr(base, name)
+
+        def uncoupled_log_increments(self, dw, j):
+            return base.uncoupled_log_increments(dw, j) + 0.05 * dw * dw
+
+    r, a_lin, sigma, drift, x0 = R.merton_form_constants(base)
+    assert (r, a_lin, sigma, x0) == (0.1, pytest.approx(0.1), 0.3, 1.0)
+    assert drift == pytest.approx(float(base.uncoupled_log_increments(
+        torch.zeros(()), torch.zeros(()))))
+    assert R.merton_form_constants(CrossTerm()) is None
+    assert R.merton_form_constants(QuadraticDW()) is None
+    with pytest.raises(ValueError, match="Merton-form"):
+        R.FusedRolloutOp(CrossTerm(), 8)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(hidden=(8, 16)), "two equal layers"),
+    (dict(hidden=(16, 16)), "two equal layers"),
+    (dict(hidden=(8, 8), hoist_interp="clenshaw"), "piecewise"),
+    (dict(hidden=(8, 8), pw_degree=5), "pw_degree"),
+    (dict(hidden=(8, 8), activation="relu"), "activation"),
+])
+def test_fused_preconditions_raise_before_touching_cuda(kw, match):
+    """An unmet precondition raises ValueError at construction on
+    device="cuda", before any allocation: on a machine without a card the
+    first CUDA allocation would raise something else."""
+    args = dict(HOIST, **kw)
+    with pytest.raises(ValueError, match=match):
+        PricingSolver(_model(), "global", fused_rollout=True, device="cuda",
+                      **args)
+    assert PricingSolver(_model(), "global", device="cpu",
+                         **args).fused_unmet()
+
+
+def test_operator_rejects_unbuilt_widths_and_degrees():
+    with pytest.raises(ValueError, match="hidden widths"):
+        R.FusedRolloutOp(_model(), 16)
+    with pytest.raises(ValueError, match="degree"):
+        R.FusedRolloutOp(_model(), 8, degree=5)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_without_building():
+    """The wrappers validate before they build or launch anything."""
+    model, params, tables, dw, j = _inputs()
+    op = R.FusedRolloutOp(model, 8)
+    w = tuple(t.detach() for t in (*params["gam"]["W"], *params["gam"]["b"]))
+    weights = (w[0], w[3], w[1], w[4], w[2])
+    tabs = {k: v.detach() for k, v in tables.items()}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        R.b1_forward(op.spec, weights, params["uz"]["y0"].detach(), tabs, dw,
+                     j, save=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        R.b2_backward(op.spec, weights, tabs, dw, j, dw, dw, dw[0], dw[0])
+    assert R.b1_forward.launches == 0 and R.b2_backward.launches == 0
+
+
+def test_cuda_request_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises((AssertionError, RuntimeError)):
+        PricingSolver(_model(), "global", hidden=(8, 8), fused_rollout=True,
+                      **HOIST)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scheme="multistep1"),
+    dict(hoist=False),
+    dict(compensator=CompensatorSpec(kind="mc", x_interp="chebyshev")),
+    dict(sweep_impl="pallas"),
+    dict(hoist_gamma=True),
+])
+def test_unported_configurations_raise(kw):
+    args = dict(HOIST, hidden=(8, 8), device="cpu", **kw)
+    scheme = args.pop("scheme", "global")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PricingSolver(_model(), scheme, **args)
