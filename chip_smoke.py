@@ -3,17 +3,29 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-1. build the CUDA kernels from ``deepfbsdejsolvers_torch/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version at full width
-   (hidden 21, N = 50, the real hoisted tables of the Merton speed
-   configuration) on a ragged batch of 2^14 + 37 paths: B1's (x_N, y_N),
-   B2's gradients through ``FusedRollout``, and B2 run twice bit for bit;
-   then the same at hidden 8, N = 7, 1000 paths;
-3. train Merton global deep-BSDE through ``SolverGlobalFBSDE`` with
-   ``fused_rollout=True`` at batch 2^17 for 2 outer epochs of 10 Adam steps,
-   with the kernels' launch counters set to 0 just before and read just
-   after; then time a training step and each kernel against its plain
-   version at that batch, with CUDA events after a warm-up.
+1. build the CUDA kernels from ``deepfbsdejsolvers_torch/csrc`` with nvcc,
+   all sources at once;
+2. hold each kernel against its plain PyTorch version on ragged batches:
+   - B1's (x_N, y_N) and B2's gradients through ``FusedRollout`` at full
+     width (hidden 21, N = 50, the real hoisted tables of the Merton speed
+     configuration, 2^14 + 37 paths), B2 run twice bit for bit; then the
+     same at hidden 8, N = 7, 1000 paths;
+   - B3's sweep and B4's gradients of (x, a, c, W1, b1, v) against
+     ``sweep_plain`` and autograd of it, on the parity path's node sets:
+     hidden 21 with the 49-node quadrature at 2^14 + 37 paths and with
+     5000 Monte-Carlo nodes at 2^12 + 37 paths, and hidden 8 with the
+     quadrature at 1000 paths; B4 run twice bit for bit;
+3. drive the two training paths through ``SolverGlobalFBSDE`` at batch 2^17
+   for 2 outer epochs of 10 Adam steps each, every kernel's launch counter
+   set to 0 just before a path and read just after:
+   - the speed path (hoisted piecewise tables, ``fused_rollout=True``),
+     which must launch B1 and B2;
+   - the parity path (``make_merton_default()``, the 49-node quadrature
+     swept at every path, ``sweep_impl="pallas"``), which must launch B3
+     and B4 at each of the 50 steps;
+4. time a training step of each path and profile it, and time each kernel
+   against its plain version at the path's shapes, with CUDA events after
+   a warm-up; B3/B4 also at 5000 Monte-Carlo nodes.
 
 The line before the last holds the card's name and power limit
 (nvidia-smi), the one before it the kernels' JSON record; the last line is
@@ -38,6 +50,9 @@ N_STEPS, HIDDEN, PIECES = 50, 21, 8
 CHECK_BATCH = 2**14 + 37
 TRAIN_BATCH = 2**17
 FWD_ABS_TOL, LOSS_REL_TOL, GRAD_REL_TOL = 1e-4, 1e-5, 1e-4
+# B3: max |Δ out| relative to max |out| of the plain sweep
+SWEEP_REL_TOL = 1e-5
+N_QUAD, N_MC = 49, 5000
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
 # FP32 outside the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -82,7 +97,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2, setup=None) -> float:
 
 def work(kernel: str, n: int, batch: int, h: int, p: int):
     """(FLOPs, bytes) the kernel's function needs on these shapes, counted
-    from the code per path and step; each tanh counts as one operation.
+    from the code per path and step (B1, B2) or per path and node (B3, B4,
+    with ``n`` the node count M); each tanh counts as one operation.
     B1: the head 2H² + 10H, 2H tanh, three degree-7 Clenshaw evaluations of
     24 FLOPs, ~40 FLOPs of piece lookup, BSDE and walk update; dW and J read,
     xs and ys written.  B2: the head recomputed (2H² + 10H, 2H tanh), its
@@ -92,6 +108,19 @@ def work(kernel: str, n: int, batch: int, h: int, p: int):
     dW and J read."""
     ps = n * batch
     table_bytes = 3 * n * p * 8 * 4
+    weight_bytes = 4 * (h * h + h)
+    if kernel == "B3":
+        # x·a + c (2H), tanh (H), the H×H layer with bias (2H² + H), tanh
+        # (H), the v-weighted sum (2H); x read, out written, the node rows
+        # (a, c, v) and W1, b1 read once
+        return ps * (2 * h * h + 7 * h), 8 * batch + 12 * n * h + weight_bytes
+    if kernel == "B4":
+        # the hidden layers again (2H² + 5H), their backward: g·h2 (H), dz2
+        # (4H), W1·dz2 (2H²), dz1 (3H), dx (2H); the sums over paths: dW1
+        # (2H²), db1, dc, dv (H each), da (2H); x and g read, dx written,
+        # the node rows and weights read and their cotangents written
+        return (ps * (6 * h * h + 20 * h),
+                12 * batch + 24 * n * h + 2 * weight_bytes)
     if kernel == "B1":
         flops = ps * (2 * h * h + 12 * h + 3 * 24 + 40)
         nbytes = 16 * ps + 8 * batch + table_bytes
@@ -196,6 +225,115 @@ def time_kernels(op, inputs) -> dict:
     return out
 
 
+def sweep_inputs(hidden: int, node_set: str, batch: int, tag: int):
+    """One call of the parity path's sweep at step 25: a Γ head with
+    non-zero biases, the node set in rank-1 form (the 49-node quadrature,
+    or N_MC Monte-Carlo draws with uniform weights), spots drawn
+    lognormally around x0, and a cotangent for B4.  Returns ((x, a, c, W1,
+    b1, v), g), detached and contiguous on the card."""
+    from deepfbsdejsolvers_torch.models.merton import make_merton_default
+    from deepfbsdejsolvers_torch.nets.mlp import MLPSpec, init_mlp
+    from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
+    from deepfbsdejsolvers_torch.ops.sweep import rank1_three_feature
+    from deepfbsdejsolvers_torch.solvers.train import make_generator
+
+    model = make_merton_default()
+    gcpu = make_generator("cpu", SEED, 6, tag)
+    head = init_mlp(gcpu, MLPSpec(3, (hidden, hidden), 1), "cuda")
+    head["b"] = [0.1 * torch.randn(b.shape, generator=gcpu).cuda()
+                 for b in head["b"]]
+    gen = make_generator("cuda", SEED, 7, tag)
+    if node_set == "mc":
+        nodes = model.sample_jumps(gen, (N_MC,))
+        weights = torch.full_like(nodes, 1.0 / N_MC)
+    else:
+        nodes, weights = (t.cuda() for t in
+                          model.jump_quadrature(CompensatorSpec()))
+    with torch.no_grad():
+        a, c, v, _ = rank1_three_feature(
+            head, torch.tensor(25.0, device="cuda"), nodes, False, weights)
+    x = model.x0 * torch.exp(0.3 * torch.randn(batch, generator=gen,
+                                               device="cuda"))
+    g = torch.randn(batch, generator=gen, device="cuda") / batch
+    args = tuple(t.detach().contiguous()
+                 for t in (x, a, c, head["W"][1], head["b"][1], v))
+    return args, g
+
+
+def check_sweep(args, g) -> dict:
+    """Phase 2: B3 against ``sweep_plain``, B4 against autograd of it, on
+    the same inputs; B4 twice bit for bit."""
+    from deepfbsdejsolvers_torch.ops import sweep as S
+
+    with torch.no_grad():
+        out_k = S.b3_forward(*args)
+        out_p = S.sweep_plain(*args)
+    fwd_err = float((out_k - out_p).abs().max())
+    fwd_rel = fwd_err / float(out_p.abs().max())
+    print(f"B3 vs plain: max|Δ out| {fwd_err:.3e}, relative to max|out| "
+          f"{fwd_rel:.3e} (tol {SWEEP_REL_TOL})")
+    if not (math.isfinite(fwd_rel) and fwd_rel <= SWEEP_REL_TOL):
+        fail("B3 disagrees with sweep_plain")
+    gk = S.b4_backward(*args, g)
+    gk2 = S.b4_backward(*args, g)
+    same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    gp = torch.autograd.grad(S.sweep_plain(*leaves), leaves, g)
+    num = math.sqrt(sum(float(torch.sum((a - b) ** 2))
+                        for a, b in zip(gk, gp)))
+    den = math.sqrt(sum(float(torch.sum(b ** 2)) for b in gp))
+    grad_rel = num / den
+    grad_abs = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    each = ", ".join(f"{n} {float((a - b).norm() / b.norm()):.1e}" for n, a, b
+                     in zip(("x", "a", "c", "W1", "b1", "v"), gk, gp))
+    print(f"B4 vs autograd of plain: grad global-norm rel {grad_rel:.3e} "
+          f"(tol {GRAD_REL_TOL}; {each}), max abs {grad_abs:.3e}; rerun "
+          f"bit-identical: {same}")
+    if not (math.isfinite(grad_rel) and grad_rel <= GRAD_REL_TOL):
+        fail("B4 gradients disagree with autograd of sweep_plain")
+    if not same:
+        fail("two B4 runs on the same inputs differ")
+    return {"B3": {"max_abs_err": fwd_err, "rel_err": fwd_rel},
+            "B4": {"max_abs_err": grad_abs, "rel_err": grad_rel}}
+
+
+def time_sweep(args, g, node_block=None) -> dict:
+    """B3 and B4 against their plain versions at these inputs' shapes: B3
+    against ``sweep_plain`` without autograd, B4 against autograd's
+    backward of it.  With ``node_block`` the plain versions run over blocks
+    of that many nodes, as the solver's plain sweep does when the whole
+    [M, B, H] grid does not fit: the forward summed block by block, the
+    backward through blocks under torch.utils.checkpoint (its time includes
+    each block's recomputed forward)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from deepfbsdejsolvers_torch.ops import sweep as S
+
+    m = args[1].shape[0]
+    step = m if node_block is None else node_block
+    blocks = [slice(k, k + step) for k in range(0, m, step)]
+    reps = 10 if node_block is None else 3
+
+    def plain(x, a, c, w1, b1, v, remat=False):
+        one = lambda s: S.sweep_plain(x, a[s], c[s], w1, b1, v[s])
+        if remat:
+            return sum(checkpoint(one, s, use_reentrant=False)
+                       for s in blocks)
+        return sum(one(s) for s in blocks)
+
+    out = {"B3": {"ms": cuda_ms(lambda _: S.b3_forward(*args), reps=reps)},
+           "B4": {"ms": cuda_ms(lambda _: S.b4_backward(*args, g),
+                                reps=reps)}}
+    with torch.no_grad():
+        out["B3"]["plain_ms"] = cuda_ms(lambda _: plain(*args),
+                                        reps=max(1, reps // 3), warmup=1)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    out["B4"]["plain_ms"] = cuda_ms(
+        lambda y: torch.autograd.grad(y, leaves, g), reps=max(1, reps // 3),
+        warmup=1, setup=lambda: plain(*leaves, remat=node_block is not None))
+    return out
+
+
 def profile_steps(step, gen, step_ms: float, steps: int = 3) -> None:
     """Device time per training step by kernel (torch.profiler), and the
     device's idle share against the unprofiled step time."""
@@ -229,18 +367,69 @@ def profile_steps(step, gen, step_ms: float, steps: int = 3) -> None:
         print(f"  {ms:8.4f} ms  x{count:5.1f}  {name[:100]}")
 
 
+def train_path(solver_kw: dict, watch, counters) -> dict:
+    """Phase 3: train one path through ``SolverGlobalFBSDE`` at batch 2^17
+    for 2 outer epochs of 10 steps, with every kernel's launch counter set
+    to 0 just before and read just after; fails unless each kernel of
+    ``watch`` launched at least its count.  Returns the trainer and the
+    launches."""
+    from deepfbsdejsolvers_torch.solvers.api import SolverGlobalFBSDE
+    from deepfbsdejsolvers_torch.solvers.train import make_generator
+
+    trainer = SolverGlobalFBSDE(lrate=4e-4, hidden=(HIDDEN, HIDDEN),
+                                seed=SEED, **solver_kw)
+    y0_init = float(trainer.core.init_params(
+        make_generator("cpu", SEED, 0))["uz"]["y0"])
+    for fn in counters.values():
+        fn.launches = 0
+    y0s, duration = trainer.train(TRAIN_BATCH, TRAIN_BATCH, 10, 2,
+                                  verbose=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"train: launches {launches}, Y0 {y0_init:.6f} -> {y0s}, losses "
+          f"{trainer.lossList}, {duration:.3f} s")
+    if not all(math.isfinite(v) for v in trainer.lossList + y0s):
+        fail("training produced a non-finite loss or Y0")
+    if y0s[-1] == y0_init:
+        fail("Y0 did not move in training")
+    short = {k: launches[k] for k, least in watch.items()
+             if launches[k] < least}
+    if short:
+        fail(f"kernels of the path launched too few times: {short}, needed "
+             f"{watch}")
+    return trainer, launches
+
+
+def time_step(trainer, tag: int, label: str):
+    """Device time of one training step of ``trainer``'s path (CUDA
+    events, after a warm-up), its rate, and its profile."""
+    from deepfbsdejsolvers_torch.solvers.train import (
+        make_adam, make_generator, make_step)
+
+    params = trainer.params
+    loss_fn = trainer.core.build_loss(TRAIN_BATCH)
+    step = make_step(loss_fn, make_adam(params, 4e-4), params)
+    gen = make_generator("cuda", SEED, tag)
+    step_ms = cuda_ms(lambda _: step(gen), reps=5)
+    rate = TRAIN_BATCH * N_STEPS / (step_ms * 1e-3)
+    print(f"{label} train step: {step_ms:.3f} ms at batch {TRAIN_BATCH}, N "
+          f"{N_STEPS} ({rate:.4g} paths·steps/s)")
+    profile_steps(step, gen, step_ms, steps=2)
+    return step_ms, rate
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); nothing was run", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepfbsdejsolvers_torch.models.merton import make_merton_default
     from deepfbsdejsolvers_torch.ops import _build
     from deepfbsdejsolvers_torch.ops import rollout as R
-    from deepfbsdejsolvers_torch.solvers.api import SolverGlobalFBSDE
+    from deepfbsdejsolvers_torch.ops import sweep as S
     from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
-    from deepfbsdejsolvers_torch.solvers.train import (
-        make_adam, make_generator, make_step)
+    from deepfbsdejsolvers_torch.solvers.train import make_generator
 
     # 1. build
     t0 = time.perf_counter()
@@ -254,8 +443,8 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
 
-    # 2. kernel vs plain on a ragged batch: full width, then the other
-    # width the kernels are built for on a short rollout
+    # 2. kernel vs plain on ragged batches: full width, then the other
+    # width the kernels are built for at a small size
     model, kw = speed_config()
     for hidden, n, batch in ((HIDDEN, N_STEPS, CHECK_BATCH), (8, 7, 1000)):
         m = dataclasses.replace(model, N=n)
@@ -271,61 +460,84 @@ def main() -> int:
                 solver, params, batch, make_generator("cuda", SEED, 3)))
         if hidden == HIDDEN:
             check = result
+    for tag, (hidden, node_set, batch) in enumerate((
+            (HIDDEN, "quadrature", CHECK_BATCH), (HIDDEN, "mc", 2**12 + 37),
+            (8, "quadrature", 1000))):
+        print(f"sweep check at H={hidden}, {node_set} nodes, B={batch}:")
+        result = check_sweep(*sweep_inputs(hidden, node_set, batch, tag))
+        if tag == 0:
+            check.update(result)
     op = R.FusedRolloutOp(model, HIDDEN, n_pieces=PIECES)
 
-    # 3. the main path: training through the facade
-    trainer = SolverGlobalFBSDE(model, lrate=4e-4, hidden=(HIDDEN, HIDDEN),
-                                seed=SEED, **kw)
-    y0_init = float(trainer.core.init_params(
-        make_generator("cpu", SEED, 0))["uz"]["y0"])
-    R.b1_forward.launches = 0
-    R.b2_backward.launches = 0
-    y0s, duration = trainer.train(TRAIN_BATCH, TRAIN_BATCH, 10, 2,
-                                  verbose=True)
-    launches = {"B1": R.b1_forward.launches, "B2": R.b2_backward.launches}
-    print(f"train: launches {launches}, Y0 {y0_init:.6f} -> {y0s}, losses "
-          f"{trainer.lossList}, {duration:.3f} s")
-    if not all(math.isfinite(v) for v in trainer.lossList + y0s):
-        fail("training produced a non-finite loss or Y0")
-    if y0s[-1] == y0_init:
-        fail("Y0 did not move in training")
-    if min(launches.values()) < 20:
-        fail(f"a kernel of the main path launched < 20 times: {launches}")
+    # 3. the main paths: training through the facade
+    counters = {"B1": R.b1_forward, "B2": R.b2_backward,
+                "B3": S.b3_forward, "B4": S.b4_backward}
+    print("speed path (hoisted tables, fused rollout):")
+    trainer, launches = train_path(dict(kw, math_model=model),
+                                   {"B1": 20, "B2": 20}, counters)
+    print("parity path (direct 49-node sweep, sweep_impl='pallas'):")
+    parity, launches_p = train_path(
+        dict(math_model=make_merton_default(), sweep_impl="pallas",
+             device="cuda"),
+        {"B3": N_STEPS * 22, "B4": N_STEPS * 20}, counters)
+    launches.update({k: launches_p[k] for k in ("B3", "B4")})
 
-    params = trainer.params
-    loss_fn = trainer.core.build_loss(TRAIN_BATCH)
-    step = make_step(loss_fn, make_adam(params, 4e-4), params)
-    gen = make_generator("cuda", SEED, 4)
-    step_ms = cuda_ms(lambda _: step(gen), reps=10)
-    rate = TRAIN_BATCH * N_STEPS / (step_ms * 1e-3)
-    print(f"train step: {step_ms:.3f} ms at batch {TRAIN_BATCH}, N "
-          f"{N_STEPS} ({rate:.4g} paths·steps/s)")
-    profile_steps(step, gen, step_ms)
+    # 4. timings at the paths' shapes
+    step_ms, rate = time_step(trainer, 4, "speed")
     times = time_kernels(op, rollout_inputs(
-        trainer.core, params, TRAIN_BATCH, make_generator("cuda", SEED, 5)))
+        trainer.core, trainer.params, TRAIN_BATCH,
+        make_generator("cuda", SEED, 5)))
+    pstep_ms, prate = time_step(parity, 8, "parity")
+    times_mc = {}
+    for node_set, into in (("quadrature", times), ("mc", times_mc)):
+        args, g = sweep_inputs(HIDDEN, node_set, TRAIN_BATCH, 10)
+        # the solver's automatic node block at this batch, 2^24 / B nodes
+        block = None if node_set == "quadrature" else 2**24 // TRAIN_BATCH
+        into.update(time_sweep(args, g, node_block=block))
+        del args, g
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    sources = {"B1": ("rollout_fwd", 311), "B2": ("rollout_bwd", 352)}
+    rollout_shape = {"N": N_STEPS, "B": TRAIN_BATCH, "H": HIDDEN, "P": PIECES}
+    sources = {
+        "B1": ("rollout_fwd", "pallas_rollout.py:311", N_STEPS, rollout_shape),
+        "B2": ("rollout_bwd", "pallas_rollout.py:352", N_STEPS, rollout_shape),
+        "B3": ("sweep_fwd", "pallas_sweep.py:179", N_QUAD,
+               {"M": N_QUAD, "B": TRAIN_BATCH, "H": HIDDEN}),
+        "B4": ("sweep_bwd", "pallas_sweep.py:199", N_QUAD,
+               {"M": N_QUAD, "B": TRAIN_BATCH, "H": HIDDEN})}
     record = []
-    for k, (src, line) in sources.items():
-        b_ms, b_by = bound(k, N_STEPS, TRAIN_BATCH, HIDDEN, PIECES)
-        record.append({
+    for k, (src, tpu, n, shape) in sources.items():
+        b_ms, b_by = bound(k, n, TRAIN_BATCH, HIDDEN, PIECES)
+        entry = {
             "name": f"{k} {src}", "route": "cuda",
             "source": f"deepfbsdejsolvers_torch/csrc/{src}.cu",
-            "replaces": f"deepfbsdejsolvers_tpu/ops/pallas_rollout.py:{line}",
+            "replaces": f"deepfbsdejsolvers_tpu/ops/{tpu}",
             "launches": launches[k], "max_abs_err": check[k]["max_abs_err"],
             "rel_err": check[k]["rel_err"], "check": "pass",
             "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": {"N": N_STEPS, "B": TRAIN_BATCH, "H": HIDDEN,
-                      "P": PIECES}})
+            "shape": shape}
         print(f"{k}: {times[k]['ms']:.4f} ms (plain {times[k]['plain_ms']:.3f}"
               f" ms, bound {b_ms:.4f} ms by {b_by})")
+        if k in times_mc:
+            mc_ms, mc_by = bound(k, N_MC, TRAIN_BATCH, HIDDEN, PIECES)
+            entry["mc5000"] = {
+                "ms": times_mc[k]["ms"], "plain_ms": times_mc[k]["plain_ms"],
+                "bound_ms": mc_ms, "bound_by": mc_by,
+                "plain_node_block": 2**24 // TRAIN_BATCH,
+                "shape": {"M": N_MC, "B": TRAIN_BATCH, "H": HIDDEN}}
+            print(f"{k} at M={N_MC}: {times_mc[k]['ms']:.3f} ms (plain "
+                  f"{times_mc[k]['plain_ms']:.1f} ms, bound {mc_ms:.3f} ms "
+                  f"by {mc_by})")
+        record.append(entry)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": record, "train_step_ms": step_ms,
-                      "paths_steps_per_s": rate}))
+                      "paths_steps_per_s": rate,
+                      "parity_train_step_ms": pstep_ms,
+                      "parity_paths_steps_per_s": prate}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

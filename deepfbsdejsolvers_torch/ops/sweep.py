@@ -1,0 +1,170 @@
+"""The compensator sweep with a rank-1 first layer: plain and CUDA kernels.
+
+The un-hoisted global scheme needs, every step, the weighted sweep of the Γ
+head [t, x, f] (3 → H → H → 1, tanh) over a node set {(f_m, w_m)}:
+Σ_m w_m·Γ(t, x_b, f_m) for every path b.  The node feature enters the first
+layer linearly, so at node m that layer is tanh(x_b·a_m + c_m) with
+per-node vectors a_m, c_m (``rank1_three_feature``), and the weights fold
+into the output column, v_m = w_m·W2[:, 0].  What is left,
+
+    out_b = Σ_m Σ_k v[m,k]·tanh(Σ_h tanh(x_b·a[m,h] + c[m,h])·W1[h,k] + b1[k]),
+
+plus the folded bias wb2 = Σ_m w_m·b2, is computed by ``sweep_plain`` in
+PyTorch (the CPU path, and the oracle the kernels are held against) and by
+two CUDA kernels on the card: B3, the forward (``csrc/sweep_fwd.cu``), and
+B4, the backward (``csrc/sweep_bwd.cu``), behind the ``FusedSweep`` autograd
+function.  ``fused_sweep`` dispatches on the device of its input: the plain
+sweep on CPU tensors, the kernels on CUDA tensors, and no fallback from the
+kernels to the plain sweep.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deepfbsdejsolvers_torch.ops.rollout import (
+    KERNEL_WIDTHS, _check, _lib, _ptr)
+
+# Paths per thread block of both kernels, and the most blocks B4 launches:
+# together they fix the order of B4's sums and bound its partial buffer
+# (csrc/sweep_common.cuh).
+_THREADS = 128
+_B4_MAX_BLOCKS = 512
+
+
+def rank1_three_feature(head, t, feat, x_prop: bool, weights):
+    """(a, c, v, wb2) of the Γ head ``head`` swept over nodes with feature
+    ``feat`` (M,) and weights (M,) at time feature ``t``.
+
+    With W0 (3, H) the first layer's rows (t, x, f):
+      x_prop=False (f = J):    a = W0[x],          c = t·W0[t] + f·W0[f] + b0
+      x_prop=True  (f = x·J):  a = W0[x] + f·W0[f], c = t·W0[t] + b0
+    a, c, v are (M, H); v = w·W2[:, 0]; wb2 = Σ w·b2 is added to the sweep
+    outside.  Differentiable, so the sweep's cotangents of a, c and v reach
+    W0, b0, W2 and b2 through autograd."""
+    w0, b0 = head["W"][0], head["b"][0]
+    w2, b2 = head["W"][2], head["b"][2]
+    fcol = feat[:, None] * w0[2][None, :]
+    base_c = t * w0[0] + b0
+    if x_prop:
+        a = w0[1][None, :] + fcol
+        c = base_c[None, :].expand_as(a)
+    else:
+        c = base_c[None, :] + fcol
+        a = w0[1][None, :].expand_as(c)
+    v = weights[:, None] * w2[:, 0][None, :]
+    return a, c, v, weights.sum() * b2[0]
+
+
+def sweep_plain(x, a, c, w1, b1, v):
+    """out_b = Σ_m Σ_k v[m,k]·tanh(tanh(x_b·a[m] + c[m]) @ W1 + b1)[k], in
+    PyTorch on an [M, B, H] grid; x (B,), a, c, v (M, H), w1 (H, H), b1 (H,)."""
+    h1 = torch.tanh(x[None, :, None] * a[:, None, :] + c[:, None, :])
+    h2 = torch.tanh(torch.matmul(h1, w1) + b1)
+    return (h2 * v[:, None, :]).sum(dim=(0, 2))
+
+
+def _check_sweep(x, a, c, w1, b1, v):
+    """Shared validation of both kernels' inputs; returns (batch, m, h)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the sweep kernels take CUDA tensors, got "
+                         f"{x.device}")
+    if x.ndim != 1 or x.shape[0] < 1:
+        raise ValueError(f"x: expected (B,) with B >= 1, got "
+                         f"{tuple(x.shape)}")
+    if a.ndim != 2 or a.shape[0] < 1:
+        raise ValueError(f"a: expected (M, H) with M >= 1, got "
+                         f"{tuple(a.shape)}")
+    (batch,), (m, h), dev = x.shape, a.shape, x.device
+    if h not in KERNEL_WIDTHS:
+        raise ValueError(f"the sweep kernels are built for hidden widths "
+                         f"{KERNEL_WIDTHS}, got {h}")
+    if batch >= 2**31 or 3 * m * h + h * h + h >= 2**31:
+        raise ValueError("the sweep does not fit the kernels' 32-bit "
+                         "indices")
+    for name, t, shape in (("x", x, (batch,)), ("a", a, (m, h)),
+                           ("c", c, (m, h)), ("w1", w1, (h, h)),
+                           ("b1", b1, (h,)), ("v", v, (m, h))):
+        _check(name, t, shape, dev)
+    return batch, m, h
+
+
+def b3_forward(x, a, c, w1, b1, v):
+    """Kernel B3: the sweep's forward, one thread per path looping over the
+    nodes.  Returns out (B,)."""
+    batch, m, h = _check_sweep(x, a, c, w1, b1, v)
+    fn = _lib("sweep_fwd", 7, 3, 0)
+    out = torch.empty((batch,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(*map(_ptr, (x, a, c, w1, b1, v, out)), batch, m, h,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_fwd: CUDA error {rc} at launch")
+    b3_forward.launches += 1
+    return out
+
+
+b3_forward.launches = 0
+
+
+def b4_blocks(batch: int) -> int:
+    """Thread blocks of B4 for ``batch`` paths: one per 128-path tile up to
+    a fixed maximum, each block walking its tiles in order."""
+    return min(-(-batch // _THREADS), _B4_MAX_BLOCKS)
+
+
+def b4_backward(x, a, c, w1, b1, v, g):
+    """Kernel B4: the sweep's backward for the cotangent ``g`` (B,).  It
+    recomputes each path's hidden layers per node, keeps dx in the thread,
+    and sums the weight cotangents over paths per block; a second kernel
+    sums the blocks' partials in block order.  Returns
+    (dx, da, dc, dw1, db1, dv)."""
+    batch, m, h = _check_sweep(x, a, c, w1, b1, v)
+    _check("g", g, (batch,), x.device)
+    n_out = h * h + h + 3 * m * h
+    n_blocks = b4_blocks(batch)
+    fn = _lib("sweep_bwd", 10, 4, 0)
+    kw = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((batch,), **kw)
+    part = torch.empty((n_blocks, n_out), **kw)
+    out = torch.empty((n_out,), **kw)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(*map(_ptr, (x, a, c, w1, b1, v, g, dx, part, out)), batch,
+                m, h, n_blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_bwd: CUDA error {rc} at launch")
+    b4_backward.launches += 1
+    dw1 = out[:h * h].view(h, h)
+    db1 = out[h * h:h * h + h]
+    da, dc, dv = out[h * h + h:].view(3, m, h)
+    return dx, da, dc, dw1, db1, dv
+
+
+b4_backward.launches = 0
+
+
+class FusedSweep(torch.autograd.Function):
+    """B3 forward, B4 backward.  Only the inputs are saved: B4 recomputes
+    the hidden layers, so no [M, B, H] activation outlives the call."""
+
+    @staticmethod
+    def forward(ctx, x, a, c, w1, b1, v):
+        ctx.save_for_backward(x, a, c, w1, b1, v)
+        return b3_forward(x, a, c, w1, b1, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return b4_backward(*ctx.saved_tensors, g.contiguous())
+
+
+def fused_sweep(x, a, c, w1, b1, v):
+    """The sweep ``out`` (B,): ``sweep_plain`` on CPU tensors, kernels B3
+    (and B4 under autograd) on CUDA tensors."""
+    if x.device.type == "cpu":
+        return sweep_plain(x, a, c, w1, b1, v)
+    args = tuple(t.contiguous() for t in (x, a, c, w1, b1, v))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return FusedSweep.apply(*args)
+    return b3_forward(*args)

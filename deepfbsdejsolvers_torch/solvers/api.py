@@ -4,7 +4,17 @@
 num_epoch, num_epochExt) -> (listY0, duration)``, the surface of the
 reference's solver classes, over the functional core in
 :mod:`deepfbsdejsolvers_torch.solvers.pricing`.  Only the global scheme is
-ported so far.
+ported so far, in two configurations:
+
+* the reference-faithful parity configuration,
+  ``SolverGlobalFBSDE(make_merton_default(), lrate, sweep_impl="pallas")``:
+  exact Poisson jumps, the per-path series price, and every step the Γ head
+  swept over the 49-node quadrature (or, with
+  ``CompensatorSpec(kind="mc")``, 5000 fresh Monte-Carlo nodes) at every
+  path, on the card by the CUDA kernels B3/B4;
+* the speed configuration, hoisted piecewise tables
+  (``hoist=True, hoist_interp="piecewise"``, a collocated model and
+  compensator), with ``fused_rollout=True`` the CUDA kernels B1/B2.
 """
 
 from __future__ import annotations

@@ -127,9 +127,9 @@ def test_cuda_request_without_a_card_raises():
 
 @pytest.mark.parametrize("kw", [
     dict(scheme="multistep1"),
-    dict(hoist=False),
-    dict(compensator=CompensatorSpec(kind="mc", x_interp="chebyshev")),
-    dict(sweep_impl="pallas"),
+    dict(comp_axis="comp"),
+    dict(compute_dtype="bfloat16"),
+    dict(adjoint=True),
     dict(hoist_gamma=True),
 ])
 def test_unported_configurations_raise(kw):
