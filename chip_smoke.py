@@ -4,7 +4,9 @@
 
 Phases, each fatal on failure:
 1. build the CUDA kernels from ``deepfbsdejsolvers_torch/csrc`` with nvcc,
-   all sources at once;
+   all sources at once, and print each kernel's registers and spills
+   (ptxas) and each sweep kernel's shared memory per block and resident
+   blocks per SM;
 2. hold each kernel against its plain PyTorch version on ragged batches:
    - B1's (x_N, y_N) and B2's gradients through ``FusedRollout`` at full
      width (hidden 21, N = 50, the real hoisted tables of the Merton speed
@@ -14,7 +16,12 @@ Phases, each fatal on failure:
      ``sweep_plain`` and autograd of it, on the parity path's node sets:
      hidden 21 with the 49-node quadrature at 2^14 + 37 paths and with
      5000 Monte-Carlo nodes at 2^12 + 37 paths, and hidden 8 with the
-     quadrature at 1000 paths; B4 run twice bit for bit;
+     quadrature at 1000 paths; then the edges of the kernels' tiling: a
+     node count one past a node chunk (17) and a single node, a batch below
+     one tile (37 paths) and one path past whole tiles (1025), and batches
+     past B4's 512 blocks of 256-path tiles, so that blocks walk two tiles
+     (the quadrature at 2^17 + 37) and three (17 nodes at 2^18 + 37, at
+     hidden 21 and 8); B4 run twice bit for bit;
 3. drive the two training paths through ``SolverGlobalFBSDE`` at batch 2^17
    for 2 outer epochs of 10 Adam steps each, every kernel's launch counter
    set to 0 just before a path and read just after:
@@ -23,9 +30,10 @@ Phases, each fatal on failure:
    - the parity path (``make_merton_default()``, the 49-node quadrature
      swept at every path, ``sweep_impl="pallas"``), which must launch B3
      and B4 at each of the 50 steps;
-4. time a training step of each path and profile it, and time each kernel
-   against its plain version at the path's shapes, with CUDA events after
-   a warm-up; B3/B4 also at 5000 Monte-Carlo nodes.
+4. time a training step of each path (``cuda_ms``) and profile it, and
+   time each kernel and its plain version the same way (``kernel_ms``:
+   calls back to back between two CUDA events, after a warm-up) at the
+   path's shapes; B3/B4 also at 5000 Monte-Carlo nodes.
 
 The line before the last holds the card's name and power limit
 (nvidia-smi), the one before it the kernels' JSON record; the last line is
@@ -76,23 +84,40 @@ def speed_config():
         device="cuda")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2, setup=None) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` runs, each between
-    two CUDA events; ``setup()`` runs untimed before each."""
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds of a training step ``fn()`` over ``reps`` steps,
+    each between two CUDA events and waited for."""
     for _ in range(warmup):
-        fn(setup() if setup else None)
+        fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
-        arg = setup() if setup else None
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(arg)
+        fn()
         end.record()
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def kernel_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device milliseconds per call of ``fn()`` over ``reps`` calls
+    launched back to back between one pair of CUDA events: a kernel's (or
+    its plain version's) own time, without a host launch gap before each
+    call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def work(kernel: str, n: int, batch: int, h: int, p: int):
@@ -155,6 +180,23 @@ def grad_leaves(gam, y0, tabs):
     return [*gam["W"], *gam["b"], y0, tabs["cc"], tabs["pc"], tabs["zc"]]
 
 
+def sweep_occupancy(name: str, hidden: int):
+    """(dynamic shared bytes per block, resident blocks per SM) of the
+    sweep kernel ``name`` at ``hidden``, from its library's info entry."""
+    import ctypes
+
+    from deepfbsdejsolvers_torch.ops import _build
+
+    fn = getattr(_build.load(name), f"{name}_info")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    if fn(hidden, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
+        fail(f"{name}_info({hidden}) failed")
+    return smem.value, blocks.value
+
+
 def check_kernels(op, model, inputs) -> dict:
     """Phase 2: each kernel against the plain rollout on the same inputs."""
     from deepfbsdejsolvers_torch.ops import rollout as R
@@ -200,7 +242,8 @@ def check_kernels(op, model, inputs) -> dict:
 def time_kernels(op, inputs) -> dict:
     """Each kernel's device time and its plain version's, at the inputs'
     shapes: B1 with residuals as in training against the plain forward
-    under autograd, B2 against autograd's backward of the plain forward."""
+    under autograd, B2 against autograd's backward of the plain forward
+    (one graph, run again and again)."""
     from deepfbsdejsolvers_torch.ops import rollout as R
 
     gam, y0, tabs, dw, j = inputs
@@ -213,22 +256,24 @@ def time_kernels(op, inputs) -> dict:
     y0d = y0.detach()
     _, _, xs, ys = R.b1_forward(spec, weights, y0d, ktabs, dw, j, save=True)
     cot = torch.ones_like(xs[0])
-    out = {"B1": {"ms": cuda_ms(lambda _: R.b1_forward(
+    out = {"B1": {"ms": kernel_ms(lambda: R.b1_forward(
                spec, weights, y0d, ktabs, dw, j, save=True), reps=20)},
-           "B2": {"ms": cuda_ms(lambda _: R.b2_backward(
+           "B2": {"ms": kernel_ms(lambda: R.b2_backward(
                spec, weights, ktabs, dw, j, xs, ys, cot, cot), reps=20)}}
     leaves = grad_leaves(gam, y0, tabs)
     plain_loss = lambda: torch.sum(sum(op.plain(gam, y0, tabs, dw, j)))
-    out["B1"]["plain_ms"] = cuda_ms(lambda _: plain_loss(), reps=5)
-    out["B2"]["plain_ms"] = cuda_ms(
-        lambda l: torch.autograd.grad(l, leaves), reps=5, setup=plain_loss)
+    out["B1"]["plain_ms"] = kernel_ms(plain_loss, reps=5)
+    loss = plain_loss()
+    out["B2"]["plain_ms"] = kernel_ms(
+        lambda: torch.autograd.grad(loss, leaves, retain_graph=True), reps=5)
     return out
 
 
-def sweep_inputs(hidden: int, node_set: str, batch: int, tag: int):
+def sweep_inputs(hidden: int, node_set: str, batch: int, tag: int,
+                 n_mc: int = N_MC):
     """One call of the parity path's sweep at step 25: a Γ head with
     non-zero biases, the node set in rank-1 form (the 49-node quadrature,
-    or N_MC Monte-Carlo draws with uniform weights), spots drawn
+    or ``n_mc`` Monte-Carlo draws with uniform weights), spots drawn
     lognormally around x0, and a cotangent for B4.  Returns ((x, a, c, W1,
     b1, v), g), detached and contiguous on the card."""
     from deepfbsdejsolvers_torch.models.merton import make_merton_default
@@ -244,8 +289,8 @@ def sweep_inputs(hidden: int, node_set: str, batch: int, tag: int):
                  for b in head["b"]]
     gen = make_generator("cuda", SEED, 7, tag)
     if node_set == "mc":
-        nodes = model.sample_jumps(gen, (N_MC,))
-        weights = torch.full_like(nodes, 1.0 / N_MC)
+        nodes = model.sample_jumps(gen, (n_mc,))
+        weights = torch.full_like(nodes, 1.0 / n_mc)
     else:
         nodes, weights = (t.cuda() for t in
                           model.jump_quadrature(CompensatorSpec()))
@@ -300,7 +345,8 @@ def check_sweep(args, g) -> dict:
 def time_sweep(args, g, node_block=None) -> dict:
     """B3 and B4 against their plain versions at these inputs' shapes: B3
     against ``sweep_plain`` without autograd, B4 against autograd's
-    backward of it.  With ``node_block`` the plain versions run over blocks
+    backward of it (one graph, run again and again).  With ``node_block``
+    the plain versions run over blocks
     of that many nodes, as the solver's plain sweep does when the whole
     [M, B, H] grid does not fit: the forward summed block by block, the
     backward through blocks under torch.utils.checkpoint (its time includes
@@ -321,16 +367,17 @@ def time_sweep(args, g, node_block=None) -> dict:
                        for s in blocks)
         return sum(one(s) for s in blocks)
 
-    out = {"B3": {"ms": cuda_ms(lambda _: S.b3_forward(*args), reps=reps)},
-           "B4": {"ms": cuda_ms(lambda _: S.b4_backward(*args, g),
-                                reps=reps)}}
+    out = {"B3": {"ms": kernel_ms(lambda: S.b3_forward(*args), reps=reps)},
+           "B4": {"ms": kernel_ms(lambda: S.b4_backward(*args, g),
+                                  reps=reps)}}
     with torch.no_grad():
-        out["B3"]["plain_ms"] = cuda_ms(lambda _: plain(*args),
-                                        reps=max(1, reps // 3), warmup=1)
+        out["B3"]["plain_ms"] = kernel_ms(lambda: plain(*args),
+                                          reps=max(1, reps // 3))
     leaves = [t.clone().requires_grad_(True) for t in args]
-    out["B4"]["plain_ms"] = cuda_ms(
-        lambda y: torch.autograd.grad(y, leaves, g), reps=max(1, reps // 3),
-        warmup=1, setup=lambda: plain(*leaves, remat=node_block is not None))
+    y = plain(*leaves, remat=node_block is not None)
+    out["B4"]["plain_ms"] = kernel_ms(
+        lambda: torch.autograd.grad(y, leaves, g, retain_graph=True),
+        reps=max(1, reps // 3))
     return out
 
 
@@ -409,7 +456,7 @@ def time_step(trainer, tag: int, label: str):
     loss_fn = trainer.core.build_loss(TRAIN_BATCH)
     step = make_step(loss_fn, make_adam(params, 4e-4), params)
     gen = make_generator("cuda", SEED, tag)
-    step_ms = cuda_ms(lambda _: step(gen), reps=5)
+    step_ms = cuda_ms(lambda: step(gen), reps=5)
     rate = TRAIN_BATCH * N_STEPS / (step_ms * 1e-3)
     print(f"{label} train step: {step_ms:.3f} ms at batch {TRAIN_BATCH}, N "
           f"{N_STEPS} ({rate:.4g} paths·steps/s)")
@@ -437,11 +484,16 @@ def main() -> int:
     print(f"build: {sorted(built) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for name in _build.KERNEL_SOURCES:
-        log = (_build.BUILD_DIR / f"{name}.ptxas.txt")
+        log = _build.ptxas_log(_build.library_path(name))
         if log.is_file():
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
+    for name in ("sweep_fwd", "sweep_bwd"):
+        for hidden in (HIDDEN, 8):
+            smem, blocks = sweep_occupancy(name, hidden)
+            print(f"  {name}<{hidden}>: {smem} bytes of shared memory per "
+                  f"block, {blocks} blocks per SM")
 
     # 2. kernel vs plain on ragged batches: full width, then the other
     # width the kernels are built for at a small size
@@ -460,11 +512,18 @@ def main() -> int:
                 solver, params, batch, make_generator("cuda", SEED, 3)))
         if hidden == HIDDEN:
             check = result
-    for tag, (hidden, node_set, batch) in enumerate((
-            (HIDDEN, "quadrature", CHECK_BATCH), (HIDDEN, "mc", 2**12 + 37),
-            (8, "quadrature", 1000))):
-        print(f"sweep check at H={hidden}, {node_set} nodes, B={batch}:")
-        result = check_sweep(*sweep_inputs(hidden, node_set, batch, tag))
+    for tag, (hidden, node_set, n_mc, batch) in enumerate((
+            (HIDDEN, "quadrature", 0, CHECK_BATCH),
+            (HIDDEN, "mc", N_MC, 2**12 + 37), (8, "quadrature", 0, 1000),
+            (HIDDEN, "mc", 17, 37), (HIDDEN, "mc", 1, 1025),
+            (HIDDEN, "quadrature", 0, 1025), (8, "mc", 17, 37),
+            (HIDDEN, "quadrature", 0, 2**17 + 37),
+            (HIDDEN, "mc", 17, 2**18 + 37), (8, "mc", 17, 2**18 + 37))):
+        nodes = f"{n_mc} MC" if node_set == "mc" else "quadrature"
+        print(f"sweep check at H={hidden}, {nodes} nodes, B={batch} (B4: "
+              f"{S.b4_blocks(batch)} blocks walk {-(-batch // 256)} tiles):")
+        result = check_sweep(*sweep_inputs(hidden, node_set, batch, tag,
+                                           n_mc))
         if tag == 0:
             check.update(result)
     op = R.FusedRolloutOp(model, HIDDEN, n_pieces=PIECES)

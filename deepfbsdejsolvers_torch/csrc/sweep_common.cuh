@@ -1,7 +1,7 @@
-// Per-path arithmetic shared by the compensator-sweep kernels B3
-// (sweep_fwd.cu) and B4 (sweep_bwd.cu): staging the head's second layer and
-// a chunk of node rows in shared memory, and one node's hidden layers for
-// one path in registers.
+// Arithmetic shared by the compensator-sweep kernels B3 (sweep_fwd.cu) and
+// B4 (sweep_bwd.cu): staging the head's second layer and a chunk of node rows
+// in shared memory, and one node's hidden layers for several paths per
+// thread in registers.
 //
 // The sweep (ops/sweep.py) is, per path b,
 //   out_b = Σ_m Σ_k v[m,k]·tanh(Σ_h tanh(x_b·a[m,h] + c[m,h])·W1[h,k] + b1[k])
@@ -9,8 +9,10 @@
 //
 // Every row in shared memory is padded to HP, a multiple of 4 floats, with
 // zeros, so a thread reads it as float4s: all threads of a block read the
-// same row at once (a broadcast), and one 16-byte load feeds four FMAs.
-// Sums over the nodes are compensated (kahan_add), since M reaches 5000.
+// same row at once (a broadcast).  Each thread carries P paths, so one
+// 16-byte load feeds 4·P FMAs: the loads per path-node fall P-fold against
+// one path per thread, and the FP32 work stays what it was.  Sums over the
+// nodes are compensated (kahan_add), since M reaches 5000.
 //
 // f32 throughout with the accurate tanhf, no fast-math flags: the port's
 // parity tolerances leave no room for approximate transcendentals.
@@ -21,20 +23,16 @@
 
 namespace sweep {
 
-constexpr int THREADS = 128;   // paths per block (ops/sweep.py _THREADS)
+constexpr int THREADS = 128;   // threads per block of both kernels
+constexpr int WARP = 32;
 constexpr int NODE_CHUNK = 16; // node rows staged in shared memory at a time
-
-template <int H>
-struct Pad {
-  static constexpr int HP = (H + 3) / 4 * 4;
-};
 
 // Shared-memory layout, in floats: W1 (H rows of HP) | b1 (HP) | a, c, v of
 // one chunk of nodes (NODE_CHUNK rows of HP each).  Every offset is a
 // multiple of 4.
 template <int H>
 struct Stage {
-  static constexpr int HP = Pad<H>::HP;
+  static constexpr int HP = (H + 3) / 4 * 4;
   static constexpr int W1 = 0;
   static constexpr int B1 = H * HP;
   static constexpr int A = B1 + HP;
@@ -87,39 +85,66 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
   sum = t;
 }
 
-// The HP floats of a padded shared-memory row into registers.
-template <int H>
-__device__ __forceinline__ void load_row(const float* s, float* r) {
-  const float4* s4 = reinterpret_cast<const float4*>(s);
+// Floats 4q .. 4q + 3 of a shared-memory row, as one 16-byte load.
+__device__ __forceinline__ float4 quad(const float* row, int q) {
+  return reinterpret_cast<const float4*>(row)[q];
+}
+
+__device__ __forceinline__ float lane_of(const float4& t, int j) {
+  return j == 0 ? t.x : j == 1 ? t.y : j == 2 ? t.z : t.w;
+}
+
+// The first layer at node ``r`` of the staged chunk for P paths:
+// h1[p][h] = tanh(x[p]·a[h] + c[h]).
+template <int H, int P>
+__device__ __forceinline__ void first_layer(const float* sm, int r,
+                                            const float (&x)[P],
+                                            float (&h1)[P][H]) {
+  using S = Stage<H>;
+  const float* ra = sm + S::A + r * S::HP;
+  const float* rc = sm + S::C + r * S::HP;
 #pragma unroll
-  for (int q = 0; q < Pad<H>::HP / 4; ++q) {
-    const float4 t = s4[q];
-    r[4 * q] = t.x;
-    r[4 * q + 1] = t.y;
-    r[4 * q + 2] = t.z;
-    r[4 * q + 3] = t.w;
+  for (int q = 0; q < S::HP / 4; ++q) {
+    const float4 a4 = quad(ra, q), c4 = quad(rc, q);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int h = 4 * q + j;
+      if (h < H) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          h1[p][h] = tanhf(x[p] * lane_of(a4, j) + lane_of(c4, j));
+      }
+    }
   }
 }
 
-// Node ``r`` of the staged chunk at path value x: h1 = tanh(x·a + c) and the
-// second layer's pre-activation z = b1 + h1·W1.
-template <int H>
-__device__ __forceinline__ void hidden(const float* sm, int r, float x,
-                                       float* h1, float* z) {
+// Quad q of the second layer's pre-activation z = b1 + h1·W1 for P paths:
+// z[p][j] is column 4q + j of path p, summed over h in order.  Callers walk
+// q over the HP / 4 quads, so each W1 quad read feeds 4·P FMAs and only 4·P
+// sums are live beside h1.
+template <int H, int P>
+__device__ __forceinline__ void second_layer_quad(const float* sm,
+                                                  const float (&h1)[P][H],
+                                                  int q, float (&z)[P][4]) {
   using S = Stage<H>;
-  float ra[S::HP], rc[S::HP], w[S::HP];
-  load_row<H>(sm + S::A + r * S::HP, ra);
-  load_row<H>(sm + S::C + r * S::HP, rc);
+  const float4 b4 = quad(sm + S::B1, q);
 #pragma unroll
-  for (int h = 0; h < H; ++h) h1[h] = tanhf(x * ra[h] + rc[h]);
-  load_row<H>(sm + S::B1, w);
-#pragma unroll
-  for (int k = 0; k < H; ++k) z[k] = w[k];
+  for (int p = 0; p < P; ++p) {
+    z[p][0] = b4.x;
+    z[p][1] = b4.y;
+    z[p][2] = b4.z;
+    z[p][3] = b4.w;
+  }
 #pragma unroll
   for (int h = 0; h < H; ++h) {
-    load_row<H>(sm + S::W1 + h * S::HP, w);
+    const float4 w4 = quad(sm + S::W1 + h * S::HP, q);
 #pragma unroll
-    for (int k = 0; k < H; ++k) z[k] += h1[h] * w[k];
+    for (int p = 0; p < P; ++p) {
+      z[p][0] += h1[p][h] * w4.x;
+      z[p][1] += h1[p][h] * w4.y;
+      z[p][2] += h1[p][h] * w4.z;
+      z[p][3] += h1[p][h] * w4.w;
+    }
   }
 }
 

@@ -42,39 +42,41 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built on this machine")
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its inputs' digest."""
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where ``<csrc>/<name>.cu`` builds to, keyed by its inputs' digest."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(csrc.glob("*.cuh")) + [csrc / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str] = KERNEL_SOURCES) -> List[str]:
-    """Compile every source of ``names`` that is not built yet, all nvcc
-    processes at once, and return the names compiled; raises with nvcc's
-    output if any fails.  ptxas' register and shared-memory report for each
-    kernel is kept beside the library as ``<name>.ptxas.txt``."""
-    todo = [n for n in names if not library_path(n).is_file()]
+def build(names: Sequence[str] = KERNEL_SOURCES,
+          csrc: Path = CSRC) -> List[str]:
+    """Compile every source of ``names`` under ``csrc`` (this package's by
+    default; another version's sources for an A/B) that is not built yet,
+    all nvcc processes at once, and return the names compiled; raises with
+    nvcc's output if any fails.  ptxas' register and shared-memory report
+    for each kernel is kept beside its library (``ptxas_log``)."""
+    todo = [n for n in names if not library_path(n, csrc).is_file()]
     if not todo:
         return []
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in todo:
-        out = library_path(name)
+        out = library_path(name, csrc)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o", tmp,
+               str(csrc / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, proc))
     failures = []
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
-        (BUILD_DIR / f"{name}.ptxas.txt").write_text(log)
+        ptxas_log(out).write_text(log)
         if proc.returncode != 0:
             failures.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n"
                             f"{log}")
@@ -84,6 +86,11 @@ def build(names: Sequence[str] = KERNEL_SOURCES) -> List[str]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return todo
+
+
+def ptxas_log(library: Path) -> Path:
+    """nvcc's output (ptxas' report) of the build of ``library``."""
+    return library.with_suffix(".ptxas.txt")
 
 
 def load(name: str) -> ctypes.CDLL:

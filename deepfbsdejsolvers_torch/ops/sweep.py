@@ -25,10 +25,10 @@ import torch
 from deepfbsdejsolvers_torch.ops.rollout import (
     KERNEL_WIDTHS, _check, _lib, _ptr)
 
-# Paths per thread block of both kernels, and the most blocks B4 launches:
-# together they fix the order of B4's sums and bound its partial buffer
-# (csrc/sweep_common.cuh).
-_THREADS = 128
+# Paths per tile of both kernels (128 threads of two paths each), and the
+# most blocks B4 launches: together they fix the order of B4's sums and
+# bound its partial buffer (csrc/sweep_bwd.cu BWD_TILE).
+_TILE = 256
 _B4_MAX_BLOCKS = 512
 
 
@@ -64,6 +64,14 @@ def sweep_plain(x, a, c, w1, b1, v):
     return (h2 * v[:, None, :]).sum(dim=(0, 2))
 
 
+def _check_sizes(batch: int, m: int, h: int) -> None:
+    """The kernels index in 32-bit ints the paths, and B4's partial rows of
+    H² + H + 3·M·H floats, up to the end of their last 256-wide tile."""
+    if max(batch, h * h + h + 3 * m * h) > 2**31 - _TILE:
+        raise ValueError("the sweep does not fit the kernels' 32-bit "
+                         "indices")
+
+
 def _check_sweep(x, a, c, w1, b1, v):
     """Shared validation of both kernels' inputs; returns (batch, m, h)."""
     if x.device.type != "cuda":
@@ -79,9 +87,7 @@ def _check_sweep(x, a, c, w1, b1, v):
     if h not in KERNEL_WIDTHS:
         raise ValueError(f"the sweep kernels are built for hidden widths "
                          f"{KERNEL_WIDTHS}, got {h}")
-    if batch >= 2**31 or 3 * m * h + h * h + h >= 2**31:
-        raise ValueError("the sweep does not fit the kernels' 32-bit "
-                         "indices")
+    _check_sizes(batch, m, h)
     for name, t, shape in (("x", x, (batch,)), ("a", a, (m, h)),
                            ("c", c, (m, h)), ("w1", w1, (h, h)),
                            ("b1", b1, (h,)), ("v", v, (m, h))):
@@ -90,8 +96,8 @@ def _check_sweep(x, a, c, w1, b1, v):
 
 
 def b3_forward(x, a, c, w1, b1, v):
-    """Kernel B3: the sweep's forward, one thread per path looping over the
-    nodes.  Returns out (B,)."""
+    """Kernel B3: the sweep's forward, each thread carrying a few paths
+    through the nodes in order.  Returns out (B,)."""
     batch, m, h = _check_sweep(x, a, c, w1, b1, v)
     fn = _lib("sweep_fwd", 7, 3, 0)
     out = torch.empty((batch,), dtype=torch.float32, device=x.device)
@@ -109,21 +115,27 @@ b3_forward.launches = 0
 
 
 def b4_blocks(batch: int) -> int:
-    """Thread blocks of B4 for ``batch`` paths: one per 128-path tile up to
+    """Thread blocks of B4 for ``batch`` paths: one per 256-path tile up to
     a fixed maximum, each block walking its tiles in order."""
-    return min(-(-batch // _THREADS), _B4_MAX_BLOCKS)
+    return min(-(-batch // _TILE), _B4_MAX_BLOCKS)
+
+
+def b4_partial_shape(batch: int, m: int, h: int):
+    """(blocks, floats per block) of B4's partial buffer: dW1, db1 and the
+    per-node da, dc, dv of each block, whatever the batch."""
+    return b4_blocks(batch), h * h + h + 3 * m * h
 
 
 def b4_backward(x, a, c, w1, b1, v, g):
     """Kernel B4: the sweep's backward for the cotangent ``g`` (B,).  It
     recomputes each path's hidden layers per node, keeps dx in the thread,
-    and sums the weight cotangents over paths per block; a second kernel
+    and sums the weight cotangents over paths per block (dW1 and db1 as a
+    register-tiled product, da, dc and dv by warp shuffles); a second kernel
     sums the blocks' partials in block order.  Returns
     (dx, da, dc, dw1, db1, dv)."""
     batch, m, h = _check_sweep(x, a, c, w1, b1, v)
     _check("g", g, (batch,), x.device)
-    n_out = h * h + h + 3 * m * h
-    n_blocks = b4_blocks(batch)
+    n_blocks, n_out = b4_partial_shape(batch, m, h)
     fn = _lib("sweep_bwd", 10, 4, 0)
     kw = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((batch,), **kw)

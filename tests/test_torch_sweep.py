@@ -188,8 +188,44 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_building():
 
 
 def test_b4_partials_are_bounded_independently_of_the_batch():
-    assert [S.b4_blocks(b) for b in (1, 128, 129, 1000, 2**17, 2**20)] == [
-        1, 1, 2, 8, 512, 512]
+    """One block per 256-path tile (128 threads of two paths), at most 512:
+    every block walks at least one tile, as the kernel requires."""
+    assert [S.b4_blocks(b) for b in (
+        1, 128, 129, 256, 257, 1000, 2**17, 2**20)] == [
+        1, 1, 1, 1, 2, 4, 512, 512]
+    h, m = 21, 5000
+    blocks, per_block = S.b4_partial_shape(2**20, m, h)
+    assert per_block == h * h + h + 3 * m * h
+    assert blocks * per_block <= 512 * (h * h + h + 3 * m * h)
+
+
+@pytest.mark.parametrize("m,batch", [
+    (1, 1), (17, 37), (49, 1025), (49, 2**17), (5000, 2**12 + 37),
+    (5000, 2**17), (5000, 2**20)])
+def test_b4_scratch_stays_within_its_bound(m, batch):
+    """Every block walks at least one tile, and the partial buffer holds at
+    most 512 × (H² + H + 3·M·H) floats, at any batch and node count."""
+    h = 21
+    blocks, per_block = S.b4_partial_shape(batch, m, h)
+    assert 1 <= blocks <= -(-batch // 256)
+    assert blocks * per_block <= 512 * (h * h + h + 3 * m * h)
+
+
+@pytest.mark.parametrize("batch,m,fits", [
+    (2**31 - 256, 49, True), (2**31 - 255, 49, False),
+    (2**17, (2**31 - 256 - 462) // 63, True),
+    (2**17, (2**31 - 256 - 462) // 63 + 1, False)])
+def test_sizes_past_the_kernels_32_bit_indices_raise(batch, m, fits):
+    """Paths and B4's partial rows (H² + H + 3·M·H = 462 + 63·M floats at
+    H = 21) are indexed in 32-bit ints up to the end of their last tile of
+    256, so sizes past that raise before anything builds or launches."""
+    if fits:
+        S._check_sizes(batch, m, 21)
+    else:
+        with pytest.raises(ValueError, match="32-bit"):
+            S._check_sizes(batch, m, 21)
+    assert "sweep_fwd" not in _build._LOADED
+    assert "sweep_bwd" not in _build._LOADED
 
 
 def test_parity_configuration_builds_with_the_defaults():
