@@ -5,13 +5,16 @@
 Phases, each fatal on failure:
 1. build the CUDA kernels from ``deepfbsdejsolvers_torch/csrc`` with nvcc,
    all sources at once, and print each kernel's registers and spills
-   (ptxas) and each sweep kernel's shared memory per block and resident
+   (ptxas) and B2's, B3's and B4's shared memory per block and resident
    blocks per SM;
 2. hold each kernel against its plain PyTorch version on ragged batches:
    - B1's (x_N, y_N) and B2's gradients through ``FusedRollout`` at full
      width (hidden 21, N = 50, the real hoisted tables of the Merton speed
      configuration, 2^14 + 37 paths), B2 run twice bit for bit; then the
-     same at hidden 8, N = 7, 1000 paths;
+     same at hidden 8, N = 7, 1000 paths; then at hidden 21, N = 50 and
+     at hidden 8, N = 7 on 2.5 of B2's 128-path tiles for each of its
+     most blocks, less 91 paths (a ragged last tile), so that half its
+     blocks walk two tiles and half three;
    - B3's sweep and B4's gradients of (x, a, c, W1, b1, v) against
      ``sweep_plain`` and autograd of it, on the parity path's node sets:
      hidden 21 with the 49-node quadrature at 2^14 + 37 paths and with
@@ -180,26 +183,51 @@ def grad_leaves(gam, y0, tabs):
     return [*gam["W"], *gam["b"], y0, tabs["cc"], tabs["pc"], tabs["zc"]]
 
 
-def sweep_occupancy(name: str, hidden: int):
+def occupancy(name: str, *args: int):
     """(dynamic shared bytes per block, resident blocks per SM) of the
-    sweep kernel ``name`` at ``hidden``, from its library's info entry."""
+    kernel of library ``name`` at the widths ``args``, from its info entry
+    (``sweep_*_info(hidden)``, ``rollout_bwd_info(hidden, pieces)``)."""
     import ctypes
 
     from deepfbsdejsolvers_torch.ops import _build
 
     fn = getattr(_build.load(name), f"{name}_info")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * len(args) + [
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     smem, blocks = ctypes.c_int(), ctypes.c_int()
-    if fn(hidden, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
-        fail(f"{name}_info({hidden}) failed")
+    if fn(*args, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
+        fail(f"{name}_info{args} failed")
     return smem.value, blocks.value
+
+
+def rollout_case(model, kw, hidden: int, n: int, batch: int):
+    """(model cut to ``n`` steps, rollout inputs at ``batch``) of the speed
+    configuration at ``hidden``: seeded weights with non-zero biases, so
+    every path of the kernels is exercised."""
+    from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
+    from deepfbsdejsolvers_torch.solvers.train import make_generator
+
+    m = dataclasses.replace(model, N=n)
+    solver = PricingSolver(m, "global", hidden=(hidden, hidden), **kw)
+    params = solver.init_params(make_generator("cpu", SEED, 0))
+    with torch.no_grad():
+        gb = make_generator("cpu", SEED, 2)
+        for b in params["gam"]["b"]:
+            b.copy_(0.1 * torch.randn(b.shape, generator=gb))
+    return m, rollout_inputs(solver, params, batch,
+                             make_generator("cuda", SEED, 3))
+
+
+def kernel_module(op):
+    """The module of ``op``'s class, whose ``b1_forward``/``b2_backward``
+    it launches (another version's ``ops/rollout.py`` in an A/B)."""
+    return sys.modules[type(op).__module__]
 
 
 def check_kernels(op, model, inputs) -> dict:
     """Phase 2: each kernel against the plain rollout on the same inputs."""
-    from deepfbsdejsolvers_torch.ops import rollout as R
+    R = kernel_module(op)
 
     gam, y0, tabs, dw, j = inputs
     loss = lambda x, y: torch.mean(torch.square(y - model.payoff(x)))
@@ -239,27 +267,35 @@ def check_kernels(op, model, inputs) -> dict:
             "B2": {"max_abs_err": grad_abs, "rel_err": grad_rel}}
 
 
-def time_kernels(op, inputs) -> dict:
-    """Each kernel's device time and its plain version's, at the inputs'
-    shapes: B1 with residuals as in training against the plain forward
-    under autograd, B2 against autograd's backward of the plain forward
-    (one graph, run again and again)."""
-    from deepfbsdejsolvers_torch.ops import rollout as R
-
+def kernel_calls(op, inputs):
+    """(B1 call, B2 call) of ``op``'s kernels on detached ``inputs``, as
+    training launches them: B1 saving its residuals, B2 over them with unit
+    cotangents.  Each call returns the kernel's outputs."""
+    R = kernel_module(op)
     gam, y0, tabs, dw, j = inputs
-    spec = op.spec
     (w1, w2, w3), (b1, b2, b3) = gam["W"], gam["b"]
     weights = tuple(t.detach() for t in (w1, b1, w2, b2, w3))
     ktabs = {"cc": R._fold_b3(tabs["cc"].detach(), b3.detach()),
              "pc": tabs["pc"].detach(), "zc": tabs["zc"].detach(),
              "lo": tabs["lo"], "hi": tabs["hi"]}
     y0d = y0.detach()
-    _, _, xs, ys = R.b1_forward(spec, weights, y0d, ktabs, dw, j, save=True)
+    fwd = lambda: R.b1_forward(op.spec, weights, y0d, ktabs, dw, j,
+                               save=True)
+    _, _, xs, ys = fwd()
     cot = torch.ones_like(xs[0])
-    out = {"B1": {"ms": kernel_ms(lambda: R.b1_forward(
-               spec, weights, y0d, ktabs, dw, j, save=True), reps=20)},
-           "B2": {"ms": kernel_ms(lambda: R.b2_backward(
-               spec, weights, ktabs, dw, j, xs, ys, cot, cot), reps=20)}}
+    return fwd, lambda: R.b2_backward(op.spec, weights, ktabs, dw, j, xs, ys,
+                                      cot, cot)
+
+
+def time_kernels(op, inputs) -> dict:
+    """Each kernel's device time and its plain version's, at the inputs'
+    shapes: B1 with residuals as in training against the plain forward
+    under autograd, B2 against autograd's backward of the plain forward
+    (one graph, run again and again)."""
+    gam, y0, tabs, dw, j = inputs
+    fwd, bwd = kernel_calls(op, inputs)
+    out = {"B1": {"ms": kernel_ms(fwd, reps=20)},
+           "B2": {"ms": kernel_ms(bwd, reps=20)}}
     leaves = grad_leaves(gam, y0, tabs)
     plain_loss = lambda: torch.sum(sum(op.plain(gam, y0, tabs, dw, j)))
     out["B1"]["plain_ms"] = kernel_ms(plain_loss, reps=5)
@@ -475,7 +511,6 @@ def main() -> int:
     from deepfbsdejsolvers_torch.ops import _build
     from deepfbsdejsolvers_torch.ops import rollout as R
     from deepfbsdejsolvers_torch.ops import sweep as S
-    from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
     from deepfbsdejsolvers_torch.solvers.train import make_generator
 
     # 1. build
@@ -489,28 +524,29 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-    for name in ("sweep_fwd", "sweep_bwd"):
+    for name, pieces in (("rollout_bwd", (PIECES,)), ("sweep_fwd", ()),
+                         ("sweep_bwd", ())):
         for hidden in (HIDDEN, 8):
-            smem, blocks = sweep_occupancy(name, hidden)
+            smem, blocks = occupancy(name, hidden, *pieces)
             print(f"  {name}<{hidden}>: {smem} bytes of shared memory per "
                   f"block, {blocks} blocks per SM")
 
     # 2. kernel vs plain on ragged batches: full width, then the other
-    # width the kernels are built for at a small size
+    # width the kernels are built for at a small size, then both where B2's
+    # blocks walk two and three tiles
     model, kw = speed_config()
-    for hidden, n, batch in ((HIDDEN, N_STEPS, CHECK_BATCH), (8, 7, 1000)):
-        m = dataclasses.replace(model, N=n)
-        solver = PricingSolver(m, "global", hidden=(hidden, hidden), **kw)
-        params = solver.init_params(make_generator("cpu", SEED, 0))
-        with torch.no_grad():   # non-zero biases, so every path is exercised
-            gb = make_generator("cpu", SEED, 2)
-            for b in params["gam"]["b"]:
-                b.copy_(0.1 * torch.randn(b.shape, generator=gb))
-        print(f"check at H={hidden}, N={n}, B={batch}:")
-        result = check_kernels(
-            R.FusedRolloutOp(m, hidden, n_pieces=PIECES), m, rollout_inputs(
-                solver, params, batch, make_generator("cuda", SEED, 3)))
-        if hidden == HIDDEN:
+    walk_batch = (5 * R.b2_blocks(2**30) // 2) * 128 - 91
+    for hidden, n, batch in ((HIDDEN, N_STEPS, CHECK_BATCH), (8, 7, 1000),
+                             (HIDDEN, N_STEPS, walk_batch),
+                             (8, 7, walk_batch)):
+        tiles = -(-batch // 128)
+        print(f"check at H={hidden}, N={n}, B={batch} (B2: "
+              f"{R.b2_blocks(batch)} blocks walk {tiles} tiles):")
+        m, inputs = rollout_case(model, kw, hidden, n, batch)
+        result = check_kernels(R.FusedRolloutOp(m, hidden, n_pieces=PIECES),
+                               m, inputs)
+        del inputs
+        if batch == CHECK_BATCH:
             check = result
     for tag, (hidden, node_set, n_mc, batch) in enumerate((
             (HIDDEN, "quadrature", 0, CHECK_BATCH),

@@ -4,86 +4,140 @@
 // Replaces the Pallas kernel of the JAX package's ops/pallas_rollout.py,
 // make_fused_rollout -> _bwd_kernel (its call site is _bwd_call).
 //
-// What bounds it on an H100: arithmetic.  Per path and step it recomputes
-// the Γ head's hidden layers (2H² + 6H FLOPs, 2H tanhf), runs the head's
-// backward (another ~2H² FLOPs, which also give dΓ/dx), three Clenshaw
-// evaluations with derivatives, and reads 16 bytes (xs, ys, dW, J).  On top
-// of that come the sums over paths of the parameter and table cotangents
-// (~2H² FLOPs): about three times B1's work over the same bytes.
+// What bounds it on an H100: instruction issue.  Per path and step it
+// recomputes the Γ head's hidden layers (2H² + 10H operations, 2H accurate
+// tanhf of some twenty instructions each), runs the head's backward
+// (2H² + 4H, which also gives dΓ/dx as Σ_h W1[x, h]·dp1[h]), three Clenshaw
+// evaluations with derivatives, and adds into the sums over paths: the
+// parameter cotangents (2H² + 12H) and the step's table cotangents.  It
+// reads 16 bytes per path-step (xs, ys, dW, J).
 //
-// Design: one thread per path, as in B1, with the adjoint carries (x̄, ȳ)
-// in registers.  The TPU kernel carries its sums across a sequential grid;
-// CUDA blocks run in no order, so each block reduces its own paths:
-//   * every step, each thread writes its h1, h2, dp1, dp2, ḡ, x, J, piece
-//     index, Chebyshev basis and the three table weights to shared memory
-//     (rows padded to 129 words, so threads reading different rows at one
-//     column hit different banks);
-//   * then each thread computes a few of the block's sums over its 128 paths
-//     in a fixed order: of the (H² + 6H) parameter cotangents, kept in
-//     registers across the steps, and of that step's 3·P·D table
-//     cotangents, written straight to the block's partial;
-//   * a second kernel sums the per-block partials in block order.
-// No float atomics anywhere, so two runs on the same inputs give the same
-// bits.  The Γ output bias never reaches the kernel: the caller folds it
-// into the compensator table's T_0 row and derives its cotangent from that
-// row's (ops/rollout.py).
+// Design: a fixed number of blocks (ops/rollout.py b2_blocks, independent
+// of B) each walk their 128-path tiles in order, one thread per path with
+// the adjoint carries (x̄, ȳ) in registers; the TPU kernel's sequential grid
+// becomes that walk.  Each warp works alone on its 32 paths but for one
+// block barrier per step:
+//   * the head's weights sit in shared memory with rows padded to a
+//     multiple of 4 floats (rollout_common.cuh), read as float4 broadcasts;
+//   * per step each thread stages its path's h1, dp2, dp1, x, J, piece
+//     index, Chebyshev basis and three table weights in its warp's rows of
+//     shared memory, and the warp syncs with __syncwarp;
+//   * dW2 and db2: each lane adds a fixed RM×CM micro-tile of Lᵀ·R over the
+//     warp's paths, L = [h1; 1; x; J] and R = [dp2; dp1] (rows past the
+//     needed H + 1 by H are read and dropped), RM + CM float4 reads feeding
+//     4·RM·CM FMAs; db1 and the three dW1 rows: lane h sums dp1[h], x·dp1[h]
+//     and J·dp1[h] over the paths (the time row takes the step's t_i times
+//     the first); dW3: ḡ·h2 is summed over the warp by shuffles in a fixed
+//     tree, eight outputs at a time.  All of these sums stay in the lane's
+//     registers across every step and tile the block walks, and are summed
+//     over the warps, in warp order, once at the end;
+//   * the step's table cotangents: lane q owns piece q / 4 and coefficients
+//     2(q % 4), 2(q % 4) + 1 of all three tables, and adds the basis times
+//     (−ḡ, −ū, ḡ·dW) of the warp's paths that lie in its piece.  The warps'
+//     sums wait in one of two shared-memory slots for the step's barrier,
+//     after which the block adds them in warp order into its partial in
+//     device memory (written on the block's first tile, added to after);
+//   * a second kernel sums the blocks' partials in block order.
+// Shared memory (53,664 bytes at H = 21, P = 8) and the 128-register cap of
+// __launch_bounds__(128, 4) leave room for four blocks (16 warps) per SM;
+// ptxas then spills a few values, and three blocks per SM without spills
+// ran slower (PERF.md).  No float atomics anywhere, so two runs on the same inputs give the same
+// bits, and the partial buffer holds at most b2_blocks × (H² + 6H + 1 +
+// N·3·P·D) floats whatever B.  The Γ output bias never reaches the kernel:
+// the caller folds it into the compensator table's T_0 row and derives its
+// cotangent from that row's (ops/rollout.py).
 #include "rollout_common.cuh"
 
 namespace rollout {
 
 constexpr int BWD_THREADS = 128;
-constexpr int LD = BWD_THREADS + 1;  // padded row of one block's paths
+constexpr int BWD_MIN_BLOCKS = 4;  // resident blocks per SM asked of ptxas
+constexpr int WARP = 32;
+constexpr int WARPS = BWD_THREADS / WARP;
+constexpr int LDJ = WARP + 4;  // staging row of a warp's paths, 4 floats off a bank line
 constexpr int REDUCE_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
 
-// Shared-memory layout, in floats.
+// Which part of Lᵀ·R a lane adds up: NRT × NCT micro-tiles of RM rows by
+// CM columns, each over KS slices of the warp's paths; lanes past
+// NRT·NCT·KS idle.  At H = 21 the 8 × 4 tiles of 3 × 6 cover 24 × 24 with
+// every lane, and a warp's reads of the eight L rows fall in eight
+// distinct bank quads.
 template <int H>
-struct Smem {
-  static constexpr int H1 = Head<H>::SIZE;  // head weights come first
-  static constexpr int H2 = H1 + H * LD;
-  static constexpr int DP1 = H2 + H * LD;
-  static constexpr int DP2 = DP1 + H * LD;
-  static constexpr int BASIS = DP2 + H * LD;  // T_0..T_{D-1}(t)
-  static constexpr int GBAR = BASIS + D * LD;
-  static constexpr int X = GBAR + LD;
-  static constexpr int J = X + LD;
-  static constexpr int GC = J + LD;  // cc cotangent weight: -ḡ
-  static constexpr int GP = GC + LD;  // pc: -ū
-  static constexpr int GZ = GP + LD;  // zc: ḡ·dW
-  static constexpr int K = GZ + LD;   // piece index, as a float
-  static constexpr int SIZE = K + LD;
+struct Tiling;
+template <>
+struct Tiling<21> {
+  static constexpr int RM = 3, NRT = 8, CM = 6, NCT = 4, KS = 1;
+};
+template <>
+struct Tiling<8> {
+  static constexpr int RM = 3, NRT = 3, CM = 4, NCT = 2, KS = 4;
 };
 
-// Parameter cotangents, in this order: dW2 (H×H, row h1 × column out) |
-// db2 | dW3 | db1 | dW1 row t | dW1 row x | dW1 row J.  Then ȳ0 at index
-// n_param, then the table cotangents.
 template <int H>
-struct Params {
-  static constexpr int N = H * H + 6 * H;
-  static constexpr int PER_THREAD = (N + BWD_THREADS - 1) / BWD_THREADS;
+struct Bwd {
+  using T = Tiling<H>;
+  static constexpr int RM = T::RM, CM = T::CM;
+  static constexpr int ROWS = T::NRT * RM, COLS = T::NCT * CM;
+  static constexpr int TEAM = T::NRT * T::NCT * T::KS;
+  static constexpr int KLEN = WARP / T::KS;
+  static_assert(ROWS >= H + 1 && ROWS <= H + 3 && COLS >= H &&
+                    COLS <= 2 * H && TEAM <= WARP && KLEN % 4 == 0,
+                "tiling does not cover h1ᵀ·dp2 inside the staged rows");
+  // A warp's staging rows, LDJ floats each: L = h1 (H) | ones | x | J, then
+  // R = dp2 (H) | dp1 (H), then the piece index, the table weights −ḡ, −ū,
+  // ḡ·dW and the basis T_0 .. T_{D-1}(t).
+  static constexpr int ONES = H, X = H + 1, J = H + 2;
+  static constexpr int R = H + 3, DP1 = R + H;
+  static constexpr int K = DP1 + H, G = K + 1, BASIS = G + 3;
+  static constexpr int WARP_ROWS = BASIS + D;
+  // Block shared memory, in floats: head | the warps' staging rows | two
+  // slots of the warps' table sums (WARPS × 3·P·D each, P at run time).
+  static constexpr int STG = Head<H>::SIZE;
+  static constexpr int TAB = STG + WARPS * WARP_ROWS * LDJ;
+  // dW3 is summed over the warp eight outputs at a time
+  static constexpr int GROUPS = (H + 7) / 8;
+  // At the end of the walk each thread's sums in [sum][thread] rows, over
+  // the staging rows: the micro-tile, db1 and the dW1 rows t, x, J, the
+  // dW3 groups, ȳ0.
+  static constexpr int F_DB1 = RM * CM, F_DW3 = F_DB1 + 4,
+                       F_Y0 = F_DW3 + GROUPS, F_ROWS = F_Y0 + 1;
+  static_assert(F_ROWS * BWD_THREADS <= WARPS * WARP_ROWS * LDJ,
+                "the final sums do not fit the staging rows");
+  // Parameter cotangents, in this order: dW2 (H×H, row h1 × column out) |
+  // db2 | dW3 | db1 | dW1 row t | dW1 row x | dW1 row J.  Then ȳ0 at index
+  // N_PARAM, then the table cotangents (N, 3, P, D).
+  static constexpr int N_PARAM = H * H + 6 * H;
 };
 
-// Row offsets (A, B; B < 0 means a row of ones) of one parameter sum.
-template <int H>
-__device__ __forceinline__ void param_rows(int q, int* a, int* b) {
-  using S = Smem<H>;
-  if (q < H * H) {
-    *a = S::H1 + (q / H) * LD;
-    *b = S::DP2 + (q % H) * LD;
-    return;
-  }
-  const int seg = (q - H * H) / H, idx = (q - H * H) % H;
-  switch (seg) {
-    case 0: *a = S::DP2 + idx * LD; *b = -1; break;      // db2
-    case 1: *a = S::H2 + idx * LD; *b = S::GBAR; break;  // dW3
-    case 2:                                              // db1
-    case 3: *a = S::DP1 + idx * LD; *b = -1; break;      // dW1 row t
-    case 4: *a = S::DP1 + idx * LD; *b = S::X; break;    // dW1 row x
-    default: *a = S::DP1 + idx * LD; *b = S::J; break;   // dW1 row J
+// One halving stage of a warp sum of eight slots: lanes whose bit BIT is
+// set keep the upper half of the live slots, the others the lower half;
+// each adds its partner's copy of the half it keeps and sends the other.
+template <int HALF, int BIT>
+__device__ __forceinline__ void halve(float (&v)[8], int lane) {
+  const bool upper = (lane & BIT) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, BIT);
   }
 }
 
+// Σ over the warp's lanes of v[s] for s < 8, returned in the lanes l with
+// l / 4 == s: a fixed tree of 9 shuffles.
+__device__ __forceinline__ float warp_sum8(float (&v)[8], int lane) {
+  halve<4, 16>(v, lane);
+  halve<2, 8>(v, lane);
+  halve<1, 4>(v, lane);
+  float s = v[0];
+  s += __shfl_xor_sync(FULL, s, 2);
+  s += __shfl_xor_sync(FULL, s, 1);
+  return s;
+}
+
 template <int H>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
 bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            const float* __restrict__ cc, const float* __restrict__ pc,
            const float* __restrict__ zc, const float* __restrict__ lo,
@@ -94,149 +148,278 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            const float* __restrict__ cxn, const float* __restrict__ cyn,
            float* __restrict__ part, int n, int batch, int p, Consts c) {
   using L = Head<H>;
-  using S = Smem<H>;
-  using PP = Params<H>;
-  extern __shared__ float sm[];
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x * BWD_THREADS + tid;
-  const bool active = b < batch;
+  using W = Bwd<H>;
+  using T = Tiling<H>;
+  constexpr int RM = W::RM, CM = W::CM;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x, lane = tid % WARP, warp = tid / WARP;
   const int n_tab = 3 * p * D;
-  const size_t n_out = (size_t)PP::N + 1 + (size_t)n * n_tab;
+  const int n_tiles = (batch + BWD_THREADS - 1) / BWD_THREADS;
+  const size_t n_out = (size_t)W::N_PARAM + 1 + (size_t)n * n_tab;
   float* my_part = part + (size_t)blockIdx.x * n_out;
+  float* st = sm + W::STG + warp * W::WARP_ROWS * LDJ;  // [row][path]
+  float* tab = sm + W::TAB;  // [slot][warp][table][piece][coefficient]
 
   load_head<H>(sm, w1, b1, w2, b2, w3);
-
-  int row_a[PP::PER_THREAD], row_b[PP::PER_THREAD];
-  float acc[PP::PER_THREAD];
-#pragma unroll
-  for (int m = 0; m < PP::PER_THREAD; ++m) {
-    const int q = tid + m * BWD_THREADS;
-    row_a[m] = 0;
-    row_b[m] = -1;
-    if (q < PP::N) param_rows<H>(q, &row_a[m], &row_b[m]);
-    acc[m] = 0.0f;
-  }
+  st[W::ONES * LDJ + lane] = 1.0f;
   __syncthreads();
 
-  // Idle threads of the ragged last block carry zero cotangents, so every
-  // sum they enter gets exact zeros from them.
-  float xb = active ? __ldg(cxn + b) : 0.0f;
-  float yb = active ? __ldg(cyn + b) : 0.0f;
-  float h1[H], h2[H], dp2[H];
-  for (int i = n - 1; i >= 0; --i) {
-    const float ti = c.time_scale * (float)i;
-    float x = 0.0f, yrow = 0.0f, dwr = 0.0f, jv = 0.0f;
-    if (active) {
-      const size_t off = (size_t)i * batch + b;
-      x = __ldg(xs + off);
-      yrow = __ldg(ys + off);
-      dwr = __ldg(dw + off);
-      jv = __ldg(jr + off);
-    }
-    const Piece pk = locate(x, __ldg(lo + i), __ldg(hi + i), p);
-    const size_t row = ((size_t)i * p + pk.k) * D;
-    float dcd, dad, dzd;
-    clenshaw_deriv(cc + row, pk.t, &dcd);
-    const float a_val = clenshaw_deriv(pc + row, pk.t, &dad);
-    clenshaw_deriv(zc + row, pk.t, &dzd);
-    const float cps = dcd * pk.dtdx, aps = dad * pk.dtdx,
-                zps = dzd * pk.dtdx;
-    hidden_layers<H>(sm, ti, x, jv, h1, h2);
+  // this lane's micro-tile of Lᵀ·R and its slice of the warp's paths
+  const bool in_team = lane < W::TEAM;
+  const int rt = lane % T::NRT, ct = (lane / T::NRT) % T::NCT,
+            ks = lane / (T::NRT * T::NCT);
+  const float* tile_l = st + rt * RM * LDJ + ks * W::KLEN;
+  const float* tile_r = st + (W::R + ct * CM) * LDJ + ks * W::KLEN;
+  float acc[RM][CM];
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      sm[S::H1 + h * LD + tid] = h1[h];
-      sm[S::H2 + h * LD + tid] = h2[h];
-      h1[h] = 1.0f - h1[h] * h1[h];  // now s1 = tanh' of layer 1
-      h2[h] = 1.0f - h2[h] * h2[h];  // now s2
-    }
-    // adjoint recurrence (f' = -r, coupling' = aLin sign(u))
-    const float u = yrow - a_val;
-    const float sgn = (float)((u > 0.0f) - (u < 0.0f));
-    const float ub = xb * (c.a_lin * sgn) * c.dt;
-    yb = yb + ub;
-    const float e = 1.0f + expm1_acc(c.drift + c.sigma * dwr + jv);
-    const float gbar = yb;
-    yb = yb * c.growth;
-    // the head's backward: dp2 = W3 ḡ s2, dp1 = (W2 dp2) s1.  Its x entry,
-    // Σ_h W1[x, h] dp1[h], is ḡ·dΓ/dx, so no forward-mode pass is needed.
+  for (int r = 0; r < RM; ++r)
 #pragma unroll
-    for (int o = 0; o < H; ++o) {
-      dp2[o] = (sm[L::W3 + o] * gbar) * h2[o];
-      sm[S::DP2 + o * LD + tid] = dp2[o];
-    }
-    float gx = 0.0f;
+    for (int k = 0; k < CM; ++k) acc[r][k] = 0.0f;
+  // lane h < H: Σ dp1[h] | Σ t·dp1[h] | Σ x·dp1[h] | Σ J·dp1[h]
+  float a1 = 0.0f, at = 0.0f, ax = 0.0f, aj = 0.0f;
+  float a3[W::GROUPS];  // dW3 output 8g + lane / 4
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      float s = 0.0f;
-#pragma unroll
-      for (int o = 0; o < H; ++o) s += sm[L::W2 + h * H + o] * dp2[o];
-      const float dp1 = s * h1[h];
-      sm[S::DP1 + h * LD + tid] = dp1;
-      gx += sm[L::W1 + H + h] * dp1;
-    }
-    xb = xb * e - gbar * cps + gbar * dwr * zps - ub * aps + gx;
-    float tk0 = 1.0f, tk1 = pk.t;
-    sm[S::BASIS + tid] = tk0;
-    sm[S::BASIS + LD + tid] = tk1;
-#pragma unroll
-    for (int d = 2; d < D; ++d) {
-      const float tk2 = 2.0f * pk.t * tk1 - tk0;
-      sm[S::BASIS + d * LD + tid] = tk2;
-      tk0 = tk1;
-      tk1 = tk2;
-    }
-    sm[S::GBAR + tid] = gbar;
-    sm[S::X + tid] = x;
-    sm[S::J + tid] = jv;
-    sm[S::GC + tid] = -gbar;
-    sm[S::GP + tid] = -ub;
-    sm[S::GZ + tid] = gbar * dwr;
-    sm[S::K + tid] = (float)pk.k;
-    __syncthreads();
+  for (int g = 0; g < W::GROUPS; ++g) a3[g] = 0.0f;
+  float ay0 = 0.0f;
+  int slot = 0;
 
-    // this block's parameter sums for step i, accumulated across steps
-#pragma unroll
-    for (int m = 0; m < PP::PER_THREAD; ++m) {
-      const int q = tid + m * BWD_THREADS;
-      if (q < PP::N) {
-        const float* ra = sm + row_a[m];
-        float s = 0.0f;
-        if (row_b[m] < 0) {
-          for (int k = 0; k < BWD_THREADS; ++k) s += ra[k];
-        } else {
-          const float* rb = sm + row_b[m];
-          for (int k = 0; k < BWD_THREADS; ++k) s += ra[k] * rb[k];
-        }
-        // dW1 row t: the time feature is the same for every path of a step
-        const bool is_t = q >= H * H + 3 * H && q < H * H + 4 * H;
-        acc[m] += is_t ? ti * s : s;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const bool first = tile == (int)blockIdx.x;
+    const int b = tile * BWD_THREADS + tid;
+    // idle paths of the ragged last tile carry zero cotangents, so every
+    // sum they enter gets exact zeros from them
+    const bool active = b < batch;
+    float xb = active ? __ldg(cxn + b) : 0.0f;
+    float yb = active ? __ldg(cyn + b) : 0.0f;
+    for (int i = n - 1; i >= 0; --i) {
+      const float ti = c.time_scale * (float)i;
+      float x = 0.0f, yrow = 0.0f, dwr = 0.0f, jv = 0.0f;
+      if (active) {
+        const size_t off = (size_t)i * batch + b;
+        x = __ldg(xs + off);
+        yrow = __ldg(ys + off);
+        dwr = __ldg(dw + off);
+        jv = __ldg(jr + off);
       }
+      const Piece pk = locate(x, __ldg(lo + i), __ldg(hi + i), p);
+      const size_t row = ((size_t)i * p + pk.k) * D;
+      float dcd, dad, dzd;
+      clenshaw_deriv(cc + row, pk.t, &dcd);
+      const float a_val = clenshaw_deriv(pc + row, pk.t, &dad);
+      clenshaw_deriv(zc + row, pk.t, &dzd);
+      const float cps = dcd * pk.dtdx, aps = dad * pk.dtdx,
+                  zps = dzd * pk.dtdx;
+      // adjoint recurrence (f' = -r, coupling' = aLin sign(u))
+      const float u = yrow - a_val;
+      const float sgn = (float)((u > 0.0f) - (u < 0.0f));
+      const float ub = xb * (c.a_lin * sgn) * c.dt;
+      yb = yb + ub;
+      const float e = 1.0f + expm1_acc(c.drift + c.sigma * dwr + jv);
+      const float gbar = yb;
+      yb = yb * c.growth;
+
+      float h1[H];
+      first_layer<H>(sm, ti, x, jv, h1);
+#pragma unroll
+      for (int h = 0; h < H; ++h) st[h * LDJ + lane] = h1[h];
+      // h2 a quad at a time: dp2 = W3·ḡ·(1 − h2²), and ḡ·h2 summed over
+      // the warp into dW3 eight outputs at a time
+      float dp2[H];
+#pragma unroll
+      for (int g = 0; g < W::GROUPS; ++g) {
+        float gh2[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) gh2[k] = 0.0f;
+#pragma unroll
+        for (int q = 2 * g; q < 2 * g + 2 && q < L::QUADS; ++q) {
+          float h2[4];
+          second_layer_quad<H>(sm, h1, q, h2);
+          const float4 w3q = quad(sm + L::W3, q);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int o = 4 * q + k;
+            if (o < H) {
+              dp2[o] = (lane_of(w3q, k) * gbar) * (1.0f - h2[k] * h2[k]);
+              st[(W::R + o) * LDJ + lane] = dp2[o];
+              gh2[o - 8 * g] = gbar * h2[k];
+            }
+          }
+        }
+        a3[g] += warp_sum8(gh2, lane);
+      }
+      // dp1 = (W2·dp2)·(1 − h1²).  Its x entry, Σ_h W1[x, h]·dp1[h], is
+      // ḡ·dΓ/dx, so no forward-mode pass is needed.
+      float gx = 0.0f;
+#pragma unroll
+      for (int q = 0; q < L::QUADS; ++q) {
+        const float4 wx = quad(sm + L::W1 + L::HP, q);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int h = 4 * q + k;
+          if (h < H) {
+            float s = 0.0f;
+#pragma unroll
+            for (int oq = 0; oq < L::QUADS; ++oq) {
+              const float4 w = quad(sm + L::W2 + h * L::HP, oq);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                if (4 * oq + kk < H) s += lane_of(w, kk) * dp2[4 * oq + kk];
+            }
+            const float dp1 = s * (1.0f - h1[h] * h1[h]);
+            st[(W::DP1 + h) * LDJ + lane] = dp1;
+            gx += lane_of(wx, k) * dp1;
+          }
+        }
+      }
+      xb = xb * e - gbar * cps + gbar * dwr * zps - ub * aps + gx;
+      st[W::X * LDJ + lane] = x;
+      st[W::J * LDJ + lane] = jv;
+      st[W::K * LDJ + lane] = (float)pk.k;
+      st[W::G * LDJ + lane] = -gbar;
+      st[(W::G + 1) * LDJ + lane] = -ub;
+      st[(W::G + 2) * LDJ + lane] = gbar * dwr;
+      float tk0 = 1.0f, tk1 = pk.t;
+      st[W::BASIS * LDJ + lane] = tk0;
+      st[(W::BASIS + 1) * LDJ + lane] = tk1;
+#pragma unroll
+      for (int d = 2; d < D; ++d) {
+        const float tk2 = 2.0f * pk.t * tk1 - tk0;
+        st[(W::BASIS + d) * LDJ + lane] = tk2;
+        tk0 = tk1;
+        tk1 = tk2;
+      }
+      __syncwarp();
+
+      // this lane's micro-tile of Lᵀ·R over the warp's paths
+      if (in_team) {
+#pragma unroll
+        for (int j = 0; j < W::KLEN / 4; ++j) {
+          float4 lq[RM], rq[CM];
+#pragma unroll
+          for (int r = 0; r < RM; ++r) lq[r] = quad(tile_l + r * LDJ, j);
+#pragma unroll
+          for (int k = 0; k < CM; ++k) rq[k] = quad(tile_r + k * LDJ, j);
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+#pragma unroll
+            for (int k = 0; k < CM; ++k) {
+              acc[r][k] += lq[r].x * rq[k].x;
+              acc[r][k] += lq[r].y * rq[k].y;
+              acc[r][k] += lq[r].z * rq[k].z;
+              acc[r][k] += lq[r].w * rq[k].w;
+            }
+        }
+      }
+      // db1 and the dW1 rows of input lane
+      if (lane < H) {
+        const float* rd = st + (W::DP1 + lane) * LDJ;
+        float s1 = 0.0f, sx = 0.0f, sj = 0.0f;
+#pragma unroll
+        for (int j = 0; j < WARP / 4; ++j) {
+          const float4 d4 = quad(rd, j), x4 = quad(st + W::X * LDJ, j),
+                       j4 = quad(st + W::J * LDJ, j);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            s1 += lane_of(d4, k);
+            sx += lane_of(x4, k) * lane_of(d4, k);
+            sj += lane_of(j4, k) * lane_of(d4, k);
+          }
+        }
+        a1 += s1;
+        at += ti * s1;  // the time feature is the same for every path
+        ax += sx;
+        aj += sj;
+      }
+      // the step's table cotangents: (piece, two coefficients) of a lane
+      float* wtab = tab + (slot * WARPS + warp) * n_tab;
+      for (int q = lane; q < p * (D / 2); q += WARP) {
+        const int piece = q / (D / 2), d = 2 * (q % (D / 2));
+        const float fpiece = (float)piece;
+        float s[3][2];
+#pragma unroll
+        for (int t = 0; t < 3; ++t) s[t][0] = s[t][1] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < WARP / 4; ++j) {
+          const float4 k4 = quad(st + W::K * LDJ, j);
+          const float4 g4[3] = {quad(st + W::G * LDJ, j),
+                                quad(st + (W::G + 1) * LDJ, j),
+                                quad(st + (W::G + 2) * LDJ, j)};
+          const float4 t0 = quad(st + (W::BASIS + d) * LDJ, j);
+          const float4 t1 = quad(st + (W::BASIS + d + 1) * LDJ, j);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (lane_of(k4, k) == fpiece) {
+#pragma unroll
+              for (int t = 0; t < 3; ++t) {
+                s[t][0] += lane_of(t0, k) * lane_of(g4[t], k);
+                s[t][1] += lane_of(t1, k) * lane_of(g4[t], k);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          wtab[(t * p + piece) * D + d] = s[t][0];
+          wtab[(t * p + piece) * D + d + 1] = s[t][1];
+        }
+      }
+      // every warp's table sums of step i are in; every warp is done with
+      // its staging rows, so the next step may write them
+      __syncthreads();
+      const float* src = tab + slot * WARPS * n_tab;
+      float* dst = my_part + W::N_PARAM + 1 + (size_t)i * n_tab;
+      for (int q = tid; q < n_tab; q += BWD_THREADS) {
+        float s = src[q];
+#pragma unroll
+        for (int w = 1; w < WARPS; ++w) s += src[w * n_tab + q];
+        dst[q] = first ? s : dst[q] + s;
+      }
+      slot ^= 1;
     }
-    // this block's table cotangents for step i: (table, piece, coefficient)
-    for (int q = tid; q < n_tab; q += BWD_THREADS) {
-      const int tab = q / (p * D);
-      const float piece = (float)((q / D) % p);
-      const float* basis = sm + S::BASIS + (q % D) * LD;
-      const float* g = sm + (tab == 0 ? S::GC : tab == 1 ? S::GP : S::GZ);
-      float s = 0.0f;
-      for (int k = 0; k < BWD_THREADS; ++k)
-        s += sm[S::K + k] == piece ? basis[k] * g[k] : 0.0f;
-      my_part[PP::N + 1 + (size_t)i * n_tab + q] = s;
-    }
-    __syncthreads();
+    ay0 += yb;  // ȳ0 contributions (zero for idle threads)
   }
 
-#pragma unroll
-  for (int m = 0; m < PP::PER_THREAD; ++m) {
-    const int q = tid + m * BWD_THREADS;
-    if (q < PP::N) my_part[q] = acc[m];
-  }
-  sm[S::GBAR + tid] = yb;  // ȳ0 contributions (zero for idle threads)
+  // each thread's sums into [sum][thread] rows over the staging rows, then
+  // each output summed over the warps (and slices) in order
   __syncthreads();
-  if (tid == 0) {
+  float* fin = sm + W::STG;
+#pragma unroll
+  for (int e = 0; e < RM * CM; ++e)
+    fin[e * BWD_THREADS + tid] = acc[e / CM][e % CM];
+  fin[W::F_DB1 * BWD_THREADS + tid] = a1;
+  fin[(W::F_DB1 + 1) * BWD_THREADS + tid] = at;
+  fin[(W::F_DB1 + 2) * BWD_THREADS + tid] = ax;
+  fin[(W::F_DB1 + 3) * BWD_THREADS + tid] = aj;
+#pragma unroll
+  for (int g = 0; g < W::GROUPS; ++g)
+    fin[(W::F_DW3 + g) * BWD_THREADS + tid] = a3[g];
+  fin[W::F_Y0 * BWD_THREADS + tid] = ay0;
+  __syncthreads();
+  for (int q = tid; q <= W::N_PARAM; q += BWD_THREADS) {
     float s = 0.0f;
-    for (int k = 0; k < BWD_THREADS; ++k) s += sm[S::GBAR + k];
-    my_part[PP::N] = s;
+    if (q < H * H + H) {  // dW2, then db2 (row H of the product: ones)
+      const int r = q < H * H ? q / H : H, k = q < H * H ? q % H : q - H * H;
+      const int lane_q = r / RM + T::NRT * (k / CM);
+      const float* f = fin + ((r % RM) * CM + k % CM) * BWD_THREADS;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+#pragma unroll
+        for (int kk = 0; kk < T::KS; ++kk)
+          s += f[w * WARP + lane_q + T::NRT * T::NCT * kk];
+    } else if (q < W::N_PARAM) {
+      const int seg = (q - H * H) / H - 1, idx = (q - H * H) % H;
+      // seg 0: dW3 (lanes 4·(o % 8) of group o / 8); 1..4: db1, dW1 t, x, J
+      const float* f =
+          seg == 0 ? fin + (W::F_DW3 + idx / 8) * BWD_THREADS + 4 * (idx % 8)
+                   : fin + (W::F_DB1 + seg - 1) * BWD_THREADS + idx;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += f[w * WARP];
+    } else {  // ȳ0, over the block's threads in order
+      for (int k = 0; k < BWD_THREADS; ++k)
+        s += fin[W::F_Y0 * BWD_THREADS + k];
+    }
+    my_part[q] = s;
   }
 }
 
@@ -252,57 +435,97 @@ reduce_partials(const float* __restrict__ part, float* __restrict__ out,
 }
 
 template <int H>
+size_t smem_bytes(int p) {
+  return sizeof(float) * ((size_t)Bwd<H>::TAB + 2 * WARPS * 3 * p * D);
+}
+
+// The shared memory above 48 KB needs the kernel's opt-in before a launch.
+template <int H>
+cudaError_t allow_smem(size_t smem) {
+  return cudaFuncSetAttribute(
+      bwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int H>
+cudaError_t info_bwd(int p, int* smem, int* blocks_per_sm) {
+  const size_t bytes = smem_bytes<H>(p);
+  *smem = (int)bytes;
+  const cudaError_t err = allow_smem<H>(bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, bwd_kernel<H>, BWD_THREADS, bytes);
+}
+
+template <int H>
 cudaError_t launch_bwd(const float* dw, const float* jr, const float* cc,
                        const float* pc, const float* zc, const float* lo,
                        const float* hi, const float* w1, const float* b1,
                        const float* w2, const float* b2, const float* w3,
                        const float* xs, const float* ys, const float* cxn,
                        const float* cyn, float* part, float* out, int n,
-                       int batch, int p, Consts c, cudaStream_t stream) {
-  const int blocks = (batch + BWD_THREADS - 1) / BWD_THREADS;
-  const size_t smem = sizeof(float) * Smem<H>::SIZE;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                       int batch, int p, int n_blocks, Consts c,
+                       cudaStream_t stream) {
+  const size_t smem = smem_bytes<H>(p);
+  cudaError_t err = allow_smem<H>(smem);
   if (err != cudaSuccess) return err;
-  bwd_kernel<H><<<blocks, BWD_THREADS, smem, stream>>>(
+  bwd_kernel<H><<<n_blocks, BWD_THREADS, smem, stream>>>(
       dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2, w3, xs, ys, cxn, cyn, part,
       n, batch, p, c);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n_out = Params<H>::N + 1 + n * 3 * p * D;
+  const int n_out = Bwd<H>::N_PARAM + 1 + n * 3 * p * D;
   reduce_partials<<<(n_out + REDUCE_THREADS - 1) / REDUCE_THREADS,
-                    REDUCE_THREADS, 0, stream>>>(part, out, blocks, n_out);
+                    REDUCE_THREADS, 0, stream>>>(part, out, n_blocks, n_out);
   return cudaGetLastError();
 }
 
 }  // namespace rollout
 
 // C entry (bound with ctypes by ops/rollout.py b2_backward).  ``part`` holds
-// ceil(batch / 128) partials of (H² + 6H + 1 + N·3·P·D) floats; ``out`` one
-// of them, the sum.  Returns the launches' cudaError_t;
-// cudaErrorInvalidValue for a hidden width not built here.
+// n_blocks partials of (H² + 6H + 1 + N·3·P·D) floats, n_blocks in
+// [1, ceil(batch / 128)]; ``out`` one of them, the sum.  Returns the
+// launches' cudaError_t; cudaErrorInvalidValue for a hidden width not built
+// here.
 extern "C" int rollout_bwd(const float* dw, const float* jr, const float* cc,
                            const float* pc, const float* zc, const float* lo,
                            const float* hi, const float* w1, const float* b1,
                            const float* w2, const float* b2, const float* w3,
                            const float* xs, const float* ys, const float* cxn,
                            const float* cyn, float* part, float* out, int n,
-                           int batch, int n_pieces, int hidden,
+                           int batch, int n_pieces, int hidden, int n_blocks,
                            float time_scale, float growth, float a_lin,
                            float dt, float sigma, float drift, void* stream) {
   using namespace rollout;
-  if (n < 1 || batch < 1 || n_pieces < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || batch < 1 || n_pieces < 1 || n_blocks < 1 ||
+      n_blocks > (batch + BWD_THREADS - 1) / BWD_THREADS)
+    return (int)cudaErrorInvalidValue;
   const Consts c{time_scale, growth, a_lin, dt, sigma, drift};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hidden) {
     case 8:
       return (int)launch_bwd<8>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
                                 w3, xs, ys, cxn, cyn, part, out, n, batch,
-                                n_pieces, c, st);
+                                n_pieces, n_blocks, c, st);
     case 21:
       return (int)launch_bwd<21>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
                                  w3, xs, ys, cxn, cyn, part, out, n, batch,
-                                 n_pieces, c, st);
+                                 n_pieces, n_blocks, c, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The kernel's dynamic shared memory per block and its resident blocks per
+// SM at ``hidden`` and ``n_pieces`` (chip_smoke.py reports them).
+extern "C" int rollout_bwd_info(int hidden, int n_pieces, int* smem,
+                                int* blocks_per_sm) {
+  using namespace rollout;
+  if (n_pieces < 1) return (int)cudaErrorInvalidValue;
+  switch (hidden) {
+    case 8:
+      return (int)info_bwd<8>(n_pieces, smem, blocks_per_sm);
+    case 21:
+      return (int)info_bwd<21>(n_pieces, smem, blocks_per_sm);
     default:
       return (int)cudaErrorInvalidValue;
   }

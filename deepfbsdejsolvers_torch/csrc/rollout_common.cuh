@@ -13,6 +13,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "quad.cuh"
+
 namespace rollout {
 
 // Chebyshev coefficients per piece (the tables' degree is 7).
@@ -96,17 +98,23 @@ __device__ __forceinline__ float clenshaw_deriv(const float* __restrict__ c,
 }
 
 // Shared-memory layout of the Γ head's weights, (in, out) row-major as in
-// the JAX parameter tree: W1 (3, H) | b1 (H) | W2 (H, H) | b2 (H) | W3 (H).
+// the JAX parameter tree, every row padded with zeros to HP, a multiple of
+// 4 floats: W1 (3 rows: t, x, J) | b1 | W2 (H rows, one per input) | b2 |
+// W3.  A row is read as float4s that every thread of a warp reads at once
+// (a broadcast): W2ᵀ·h1 walks the inputs h and reads row h's output quads,
+// W2·dp2 walks the outputs of row h, so one layout serves both products.
 // The output bias b3 is folded into the compensator table's T_0
 // coefficients by the caller.
 template <int H>
 struct Head {
+  static constexpr int HP = (H + 3) / 4 * 4;
+  static constexpr int QUADS = HP / 4;
   static constexpr int W1 = 0;
-  static constexpr int B1 = 3 * H;
-  static constexpr int W2 = 4 * H;
-  static constexpr int B2 = 4 * H + H * H;
-  static constexpr int W3 = 5 * H + H * H;
-  static constexpr int SIZE = 6 * H + H * H;
+  static constexpr int B1 = 3 * HP;
+  static constexpr int W2 = 4 * HP;
+  static constexpr int B2 = W2 + H * HP;
+  static constexpr int W3 = B2 + HP;
+  static constexpr int SIZE = W3 + HP;
 };
 
 template <int H>
@@ -115,35 +123,59 @@ __device__ __forceinline__ void load_head(float* sw, const float* w1,
                                           const float* b2, const float* w3) {
   using L = Head<H>;
   for (int q = threadIdx.x; q < L::SIZE; q += blockDim.x) {
-    float v;
-    if (q < L::B1) v = w1[q];
-    else if (q < L::W2) v = b1[q - L::B1];
-    else if (q < L::B2) v = w2[q - L::W2];
-    else if (q < L::W3) v = b2[q - L::B2];
-    else v = w3[q - L::W3];
+    const int row = q / L::HP, col = q % L::HP;
+    float v = 0.0f;
+    if (col < H) {
+      if (row < 3) v = w1[row * H + col];
+      else if (row == 3) v = b1[col];
+      else if (row < 4 + H) v = w2[(row - 4) * H + col];
+      else if (row == 4 + H) v = b2[col];
+      else v = w3[col];
+    }
     sw[q] = v;
   }
 }
 
-// Hidden activations of the Γ head at (t_i, x, j):
-// h1 = tanh(W1ᵀ [t_i, x, j] + b1), h2 = tanh(W2ᵀ h1 + b2).
+// The Γ head's first layer at (t_i, x, j): h1 = tanh(W1ᵀ [t_i, x, j] + b1).
 template <int H>
-__device__ __forceinline__ void hidden_layers(const float* sw, float ti,
-                                              float x, float j, float* h1,
-                                              float* h2) {
+__device__ __forceinline__ void first_layer(const float* sw, float ti,
+                                            float x, float j, float* h1) {
   using L = Head<H>;
 #pragma unroll
+  for (int q = 0; q < L::QUADS; ++q) {
+    const float4 wt = quad(sw + L::W1, q), wx = quad(sw + L::W1 + L::HP, q),
+                 wj = quad(sw + L::W1 + 2 * L::HP, q),
+                 bq = quad(sw + L::B1, q);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int h = 4 * q + k;
+      if (h < H)
+        h1[h] = tanhf(lane_of(wt, k) * ti + lane_of(wx, k) * x +
+                      lane_of(wj, k) * j + lane_of(bq, k));
+    }
+  }
+}
+
+// Quad q of the second layer: h2[4q + k] = tanh(Σ_h h1[h]·W2[h, 4q + k] +
+// b2[4q + k]), each sum over h in order from a zero start, for the k with
+// 4q + k < H.  One float4 read of W2 feeds four FMAs.
+template <int H>
+__device__ __forceinline__ void second_layer_quad(const float* sw,
+                                                  const float* h1, int q,
+                                                  float (&h2)[4]) {
+  using L = Head<H>;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
   for (int h = 0; h < H; ++h) {
-    h1[h] = tanhf(sw[L::W1 + h] * ti + sw[L::W1 + H + h] * x +
-                  sw[L::W1 + 2 * H + h] * j + sw[L::B1 + h]);
-  }
+    const float4 w = quad(sw + L::W2 + h * L::HP, q);
 #pragma unroll
-  for (int o = 0; o < H; ++o) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int h = 0; h < H; ++h) acc += h1[h] * sw[L::W2 + h * H + o];
-    h2[o] = tanhf(acc + sw[L::B2 + o]);
+    for (int k = 0; k < 4; ++k)
+      if (4 * q + k < H) acc[k] += h1[h] * lane_of(w, k);
   }
+  const float4 bq = quad(sw + L::B2, q);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (4 * q + k < H) h2[k] = tanhf(acc[k] + lane_of(bq, k));
 }
 
 }  // namespace rollout

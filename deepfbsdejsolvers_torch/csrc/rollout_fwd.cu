@@ -12,8 +12,14 @@
 //
 // Design: one thread per path.  The carries x and y and the hidden
 // activations live in registers for the whole rollout; the head's weights
-// sit in shared memory, where every thread of a warp reads the same word at
-// the same time (a broadcast).  The three tables' rows of a step (768 bytes
+// sit in shared memory, rows padded to a multiple of 4 floats
+// (rollout_common.cuh), where every thread of a warp reads the same float4
+// at the same time (a broadcast): 162 16-byte loads per path-step at
+// H = 21 where scalar reads took 567, every sum in the same order, so the
+// results are those of the scalar version bit for bit.  Γ is summed as
+// each quad of h2 is made, so h2 never lives whole.  What is left is
+// mostly the 2H accurate tanhf (~40% of the instructions) and the 441 FMAs
+// of the H×H layer.  The three tables' rows of a step (768 bytes
 // at P = 8) are shared by all paths and come through the read-only cache.
 // The (N, B) noise and residual rows are read and written coalesced, one
 // word per thread per step.  After the weight load the threads never
@@ -39,7 +45,7 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            float* __restrict__ ys, int n, int batch, int p, Consts c,
            float x0) {
   using L = Head<H>;
-  __shared__ float sw[L::SIZE];
+  __shared__ __align__(16) float sw[L::SIZE];
   load_head<H>(sw, w1, b1, w2, b2, w3);
   __syncthreads();
   const int b = blockIdx.x * FWD_THREADS + threadIdx.x;
@@ -47,7 +53,7 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   const bool save = xs != nullptr;
   float x = x0;
   float y = __ldg(y0);
-  float h1[H], h2[H];
+  float h1[H];
   for (int i = 0; i < n; ++i) {
     const size_t off = (size_t)i * batch + b;
     if (save) xs[off] = x;
@@ -56,10 +62,18 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
     const Piece pk = locate(x, __ldg(lo + i), __ldg(hi + i), p);
     const size_t row = ((size_t)i * p + pk.k) * D;
     const float comp = clenshaw(cc + row, pk.t);
-    hidden_layers<H>(sw, c.time_scale * (float)i, x, jv, h1, h2);
+    first_layer<H>(sw, c.time_scale * (float)i, x, jv, h1);
+    // Γ summed over the outputs in order as each quad of h2 is made
     float gam = 0.0f;
 #pragma unroll
-    for (int o = 0; o < H; ++o) gam += h2[o] * sw[L::W3 + o];
+    for (int q = 0; q < L::QUADS; ++q) {
+      float h2[4];
+      second_layer_quad<H>(sw, h1, q, h2);
+      const float4 w3 = quad(sw + L::W3, q);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * q + k < H) gam += h2[k] * lane_of(w3, k);
+    }
     y = y * c.growth + gam - comp;
     y = y + clenshaw(zc + row, pk.t) * dwr;
     const float a = clenshaw(pc + row, pk.t);

@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "quad.cuh"
+
 namespace sweep {
 
 constexpr int THREADS = 128;   // threads per block of both kernels
@@ -83,15 +85,6 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
   const float t = sum + y;
   comp = (t - sum) - y;
   sum = t;
-}
-
-// Floats 4q .. 4q + 3 of a shared-memory row, as one 16-byte load.
-__device__ __forceinline__ float4 quad(const float* row, int q) {
-  return reinterpret_cast<const float4*>(row)[q];
-}
-
-__device__ __forceinline__ float lane_of(const float4& t, int j) {
-  return j == 0 ? t.x : j == 1 ? t.y : j == 2 ? t.z : t.w;
 }
 
 // The first layer at node ``r`` of the staged chunk for P paths:

@@ -15,8 +15,9 @@ differentiated by autograd: the CPU path and the oracle the kernels are held
 against.  ``FusedRolloutOp`` is the operator the solver calls: on a
 CPU tensor it runs ``rollout_plain``; on a CUDA tensor it runs the whole
 forward as one kernel (B1, ``csrc/rollout_fwd.cu``) and, under autograd, the
-whole backward as one kernel plus a fixed-order reduction (B2,
-``csrc/rollout_bwd.cu``), behind the ``FusedRollout`` autograd function.
+whole backward as one kernel of a bounded number of blocks plus a
+fixed-order reduction (B2, ``csrc/rollout_bwd.cu``), behind the
+``FusedRollout`` autograd function.
 There is no fallback from the kernels to the plain loop on the card.
 """
 
@@ -36,8 +37,12 @@ from deepfbsdejsolvers_torch.ops.piecewise import pw_eval
 KERNEL_WIDTHS = (8, 21)
 # Chebyshev coefficients per piece the kernels take (degree 7).
 KERNEL_COEFFS = 8
-# Paths per thread block of B2; fixes the layout of its partial sums.
-_B2_THREADS = 128
+# Paths per tile of B2 (a block of 128 threads, one path each), and the
+# most blocks it launches: four resident blocks on each of the H100's 132
+# SMs.  Together they fix the order of B2's sums and bound its partial
+# buffer (csrc/rollout_bwd.cu).
+_B2_TILE = 128
+_B2_MAX_BLOCKS = 4 * 132
 
 
 def table_eval(coef: torch.Tensor, x: torch.Tensor, lo: torch.Tensor,
@@ -147,6 +152,16 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_sizes(n: int, batch: int, h: int, p: int) -> None:
+    """The kernels index in 32-bit ints the path-steps (N·B), the paths up
+    to the end of their last 128-wide tile, and B2's partial rows of
+    H² + 6H + 1 + N·3·P·D floats."""
+    if (n * batch >= 2**31 or batch > 2**31 - _B2_TILE
+            or b2_partial_shape(n, batch, h, p)[1] >= 2**31):
+        raise ValueError("the rollout does not fit the kernels' 32-bit "
+                         "indices")
+
+
 def _check_inputs(spec, weights, tables, dw, j):
     """Shared validation of both kernels' inputs; returns (n, batch)."""
     if dw.device.type != "cuda":
@@ -156,10 +171,8 @@ def _check_inputs(spec, weights, tables, dw, j):
         raise ValueError(f"dw: expected (N, B) with N, B >= 1, got "
                          f"{tuple(dw.shape)}")
     n, batch = dw.shape
-    if n * batch >= 2**31:
-        raise ValueError(f"N·B = {n * batch} does not fit the kernels' "
-                         "32-bit path indices")
     h, p, d, dev = spec.hidden, spec.n_pieces, KERNEL_COEFFS, dw.device
+    _check_sizes(n, batch, h, p)
     _check("j", j, (n, batch), dev)
     _check("dw", dw, (n, batch), dev)
     for name in ("cc", "pc", "zc"):
@@ -219,8 +232,23 @@ def b1_forward(spec: KernelSpec, weights, y0, tables, dw, j, save: bool):
 b1_forward.launches = 0
 
 
+def b2_blocks(batch: int) -> int:
+    """Thread blocks of B2 for ``batch`` paths: one per 128-path tile up to
+    a fixed maximum, each block walking its tiles in order."""
+    return min(-(-batch // _B2_TILE), _B2_MAX_BLOCKS)
+
+
+def b2_partial_shape(n: int, batch: int, h: int, p: int):
+    """(blocks, floats per block) of B2's partial buffer: the Γ head's
+    cotangents, ȳ0 and the N steps' table cotangents of each block,
+    whatever the batch."""
+    return b2_blocks(batch), h * h + 6 * h + 1 + n * 3 * p * KERNEL_COEFFS
+
+
 def b2_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn, cyn):
-    """Kernel B2: the reverse adjoint replay over the saved (xs, ys), then a
+    """Kernel B2: the reverse adjoint replay over the saved (xs, ys) by at
+    most ``b2_blocks(B)`` blocks walking 128-path tiles, each summing its
+    paths' cotangents in registers and per step in shared memory, then a
     second kernel that sums the per-block partials in block order.
 
     Returns one flat vector: [dW2 (H·H, row h1 × column out) | db2 | dW3 |
@@ -231,10 +259,8 @@ def b2_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn, cyn):
                            ("x_N cotangent", cxn, (batch,)),
                            ("y_N cotangent", cyn, (batch,))):
         _check(name, t, shape, dw.device)
-    h, p = spec.hidden, spec.n_pieces
-    n_out = h * h + 6 * h + 1 + n * 3 * p * KERNEL_COEFFS
-    n_blocks = -(-batch // _B2_THREADS)
-    fn = _lib("rollout_bwd", 18, 4, 6)
+    n_blocks, n_out = b2_partial_shape(n, batch, spec.hidden, spec.n_pieces)
+    fn = _lib("rollout_bwd", 18, 5, 6)
     kw = dict(dtype=torch.float32, device=dw.device)
     partials = torch.empty((n_blocks, n_out), **kw)
     out = torch.empty((n_out,), **kw)
@@ -243,7 +269,8 @@ def b2_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn, cyn):
         rc = fn(*map(_ptr, (dw, j, tables["cc"], tables["pc"], tables["zc"],
                             tables["lo"], tables["hi"], *weights, xs, ys,
                             cxn, cyn, partials, out)),
-                n, batch, p, h, *spec.scalars(), ctypes.c_void_p(stream))
+                n, batch, spec.n_pieces, spec.hidden, n_blocks,
+                *spec.scalars(), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"rollout_bwd: CUDA error {rc} at launch")
     b2_backward.launches += 1

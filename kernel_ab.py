@@ -1,0 +1,261 @@
+"""A/B of the port's CUDA kernels B1–B4 on one CUDA card.
+
+    python3 kernel_ab.py [--against DIR]
+
+Builds the four kernels (``csrc/rollout_fwd.cu``, ``rollout_bwd.cu``,
+``sweep_fwd.cu``, ``sweep_bwd.cu``) of this checkout and, with
+``--against``, of another version's ``csrc`` directory, and runs each build
+through the port's wrappers, swapping only the loaded library: B3/B4
+through this checkout's ``ops/sweep.py`` (the other version's C entries
+must take the same arguments), B1/B2 through each version's own
+``ops/rollout.py`` (``DIR/../ops/rollout.py``, loaded beside this one),
+whose ``b1_forward``/``b2_backward`` take the same arguments while B2's C
+entry and partial buffer may differ.
+
+Each build is held against its plain version by ``chip_smoke.py``'s checks:
+B1/B2 by ``check_kernels`` on ``rollout_inputs`` at H = 21, N = 50 and
+2^14 + 37 paths; B3/B4 by ``check_sweep`` on the quadrature at 2^14 + 37
+paths and on 5000 Monte-Carlo nodes at 2^12 + 37.  Then all are timed by
+``chip_smoke.kernel_ms`` at the main paths' shapes (B = 2^17, H = 21; B1/B2
+at N = 50, P = 8; B3/B4 on the 49-node quadrature and 5000 Monte-Carlo
+nodes) in turns: one untimed turn in order while the card's clocks rise
+from idle, then in order and in reverse (A, B, B, A).
+
+Prints each build's ptxas report; its SASS (``cuobjdump -sass``) counts per
+kernel, whole and per loop: every backward branch closes a loop, printed
+with its nesting depth and the counts of its body without its inner
+loops, so that each body can be multiplied by its trip count; whether
+B1's outputs and B3's output equal the first build's bit for bit; the two
+times of each kernel; and the card's name and power limit.  Exits non-zero without a card or
+when a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import importlib.util
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+NAMES = ("rollout_fwd", "rollout_bwd", "sweep_fwd", "sweep_bwd")
+CLASSES = {"FFMA": "fp32", "FADD": "fp32", "FMUL": "fp32", "MUFU": "mufu",
+           "LDS": "lds", "STS": "sts", "SHFL": "shfl", "BAR": "bar",
+           "LDG": "ldg", "STG": "stg", "LDL": "local", "STL": "local"}
+
+
+def build(csrc: Path) -> dict:
+    """{name: loaded library} of B1–B4 built from ``csrc``."""
+    from deepfbsdejsolvers_torch.ops import _build
+
+    _build.build(NAMES, csrc)
+    return {n: ctypes.CDLL(str(_build.library_path(n, csrc))) for n in NAMES}
+
+
+def rollout_module(csrc: Path):
+    """The ``ops/rollout.py`` beside ``csrc``, loaded as a module of its
+    own (this checkout's is the package's)."""
+    from deepfbsdejsolvers_torch.ops import _build
+    from deepfbsdejsolvers_torch.ops import rollout
+
+    if csrc == _build.CSRC:
+        return rollout
+    path = csrc.parent / "ops" / "rollout.py"
+    spec = importlib.util.spec_from_file_location("kernel_ab_rollout", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    mod.b1_forward.launches = mod.b2_backward.launches = 0
+    return mod
+
+
+@contextlib.contextmanager
+def using(libs: dict):
+    """The port's wrappers launch the kernels of ``libs`` inside."""
+    from deepfbsdejsolvers_torch.ops import _build
+
+    saved = {n: _build._LOADED.get(n) for n in libs}
+    _build._LOADED.update(libs)
+    try:
+        yield
+    finally:
+        for n, lib in saved.items():
+            if lib is None:
+                _build._LOADED.pop(n, None)
+            else:
+                _build._LOADED[n] = lib
+
+
+def sass(lib: Path) -> dict:
+    """{kernel: [(address, opcode, branch target or None)]} from
+    ``cuobjdump -sass``."""
+    from deepfbsdejsolvers_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    kernels, name = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            kernels[name] = []
+            continue
+        m = re.match(r"/\*([0-9a-f]{4,})\*/\s+(.*)", line)
+        if not (name and m):
+            continue
+        words = m.group(2).replace("{", " ").split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if not words:
+            continue
+        op = words[0].split(".")[0]
+        target = re.search(r"BRA\S*\s.*?0x([0-9a-f]+)", m.group(2))
+        kernels[name].append((int(m.group(1), 16), op,
+                              int(target.group(1), 16) if target else None))
+    return kernels
+
+
+def counts(instrs) -> dict:
+    c = {"all": len(instrs)}
+    for _, op, _ in instrs:
+        if op in CLASSES:
+            c[CLASSES[op]] = c.get(CLASSES[op], 0) + 1
+    return c
+
+
+def loops(instrs):
+    """[(depth, start, end, counts of the body without inner loops)] of the
+    loops closed by backward branches, outermost first."""
+    spans = sorted({(t, a) for a, op, t in instrs
+                    if op == "BRA" and t is not None and t <= a},
+                   key=lambda s: (s[0], -s[1]))
+    out = []
+    for start, end in spans:
+        depth = sum(1 for s, e in spans if s <= start and end <= e) - 1
+        inner = [(s, e) for s, e in spans if start <= s and e <= end
+                 and (s, e) != (start, end)]
+        body = [i for i in instrs if start <= i[0] <= end and not any(
+            s <= i[0] <= e for s, e in inner)]
+        out.append((depth, start, end, counts(body)))
+    return out
+
+
+def print_build(label: str, csrc: Path) -> None:
+    from deepfbsdejsolvers_torch.ops import _build
+
+    for n in NAMES:
+        lib = _build.library_path(n, csrc)
+        for line in _build.ptxas_log(lib).read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"{label} {n}: {line.strip()}")
+        for kernel, instrs in sass(lib).items():
+            print(f"{label} sass {kernel[:48]}: {counts(instrs)}")
+            for depth, start, end, c in loops(instrs):
+                print(f"{label}   {'  ' * depth}loop {start:#x}-{end:#x} "
+                      f"(depth {depth}) body {c}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", help="another version's csrc directory")
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import chip_smoke as C
+    from deepfbsdejsolvers_torch.ops import _build
+    from deepfbsdejsolvers_torch.ops import sweep as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dirs = {"this": _build.CSRC}
+    if opts.against:
+        dirs = {"against": Path(opts.against).resolve(), **dirs}
+    built = {label: build(csrc) for label, csrc in dirs.items()}
+    mods = {label: rollout_module(csrc) for label, csrc in dirs.items()}
+    order = list(built)
+    for label, csrc in dirs.items():
+        print_build(label, csrc)
+
+    # B1/B2: checks, and B1's outputs bit for bit across builds
+    model, kw = C.speed_config()
+    m, inputs = C.rollout_case(model, kw, C.HIDDEN, C.N_STEPS, C.CHECK_BATCH)
+    b1_outs = {}
+    for label in order:
+        op = mods[label].FusedRolloutOp(m, C.HIDDEN, n_pieces=C.PIECES)
+        print(f"{label} rollout N={C.N_STEPS} B={C.CHECK_BATCH}:")
+        with using(built[label]):
+            C.check_kernels(op, m, inputs)
+            b1_outs[label] = C.kernel_calls(op, inputs)[0]()
+    for label in order:
+        same = all(torch.equal(a, b) for a, b in
+                   zip(b1_outs[label], b1_outs[order[0]]))
+        print(f"{label}: B1 outputs (x_N, y_N, xs, ys) bit-identical to "
+              f"{order[0]}'s: {same}")
+    del inputs, b1_outs
+
+    # B3/B4: checks, and B3's output bit for bit across builds
+    outs = {}
+    for tag, (node_set, batch) in enumerate((("quadrature", C.CHECK_BATCH),
+                                             ("mc", 2**12 + 37))):
+        args, g = C.sweep_inputs(C.HIDDEN, node_set, batch, tag)
+        for label in order:
+            print(f"{label} {node_set} B={batch}:")
+            with using(built[label]):
+                C.check_sweep(args, g)
+                outs[label, node_set] = S.b3_forward(*args)
+    for label in order:
+        same = [torch.equal(outs[label, k], outs[order[0], k])
+                for k in ("quadrature", "mc")]
+        print(f"{label}: B3 output bit-identical to {order[0]}'s: {same}")
+
+    # times, in turns
+    m, inputs = C.rollout_case(model, kw, C.HIDDEN, C.N_STEPS, C.TRAIN_BATCH)
+    calls = {label: C.kernel_calls(mods[label].FusedRolloutOp(
+        m, C.HIDDEN, n_pieces=C.PIECES), inputs) for label in order}
+    times = {label: {"B1": [], "B2": []} for label in order}
+    for label in order + order + order[::-1]:
+        with using(built[label]):
+            fwd, bwd = calls[label]
+            times[label]["B1"].append(C.kernel_ms(fwd, 20))
+            times[label]["B2"].append(C.kernel_ms(bwd, 20))
+    for label in order:
+        t = {k: v[1:] for k, v in times[label].items()}
+        print(f"rollout N={C.N_STEPS} B={C.TRAIN_BATCH} H={C.HIDDEN} "
+              f"P={C.PIECES} {label}: B1 {t['B1'][0]:.4f} / {t['B1'][1]:.4f} "
+              f"ms, B2 {t['B2'][0]:.4f} / {t['B2'][1]:.4f} ms")
+    del inputs, calls
+    for node_set in ("quadrature", "mc"):
+        args, g = C.sweep_inputs(C.HIDDEN, node_set, C.TRAIN_BATCH, 10)
+        reps = 20 if node_set == "quadrature" else 3
+        times = {label: {"B3": [], "B4": []} for label in order}
+        for label in order + order + order[::-1]:
+            with using(built[label]):
+                times[label]["B3"].append(C.kernel_ms(
+                    lambda: S.b3_forward(*args), reps))
+                times[label]["B4"].append(C.kernel_ms(
+                    lambda: S.b4_backward(*args, g), reps))
+        for label in order:
+            t = {k: v[1:] for k, v in times[label].items()}
+            print(f"{node_set} M={args[1].shape[0]} B={C.TRAIN_BATCH} "
+                  f"H={C.HIDDEN} {label}: B3 {t['B3'][0]:.4f} / "
+                  f"{t['B3'][1]:.4f} ms, B4 {t['B4'][0]:.4f} / "
+                  f"{t['B4'][1]:.4f} ms")
+        del args, g
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi or "nvidia-smi: no output")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

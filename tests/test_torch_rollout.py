@@ -137,3 +137,48 @@ def test_unported_configurations_raise(kw):
     scheme = args.pop("scheme", "global")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PricingSolver(_model(), scheme, **args)
+
+
+def test_b2_blocks_are_capped_independently_of_the_batch():
+    """One block per 128-path tile, at most 528 (four on each of the
+    H100's 132 SMs): every block walks at least one tile, as the kernel
+    requires, and past the cap the blocks walk more tiles instead."""
+    assert [R.b2_blocks(b) for b in (
+        1, 128, 129, 1000, 2**16, 528 * 128, 528 * 128 + 1, 2**17,
+        2**19)] == [1, 1, 2, 8, 512, 528, 528, 528, 528]
+
+
+@pytest.mark.parametrize("n", [50, 1600])
+@pytest.mark.parametrize("batch", [1, 37, 2**14 + 37, 2**17, 2**19])
+def test_b2_partials_stay_within_their_bound(n, batch):
+    """B2's partial buffer holds at most 528 × (H² + 6H + 1 + N·3·P·D)
+    floats at any batch: at N = 1600 and 2^19 paths 650 MB, where one
+    partial per tile would take 5.0 GB."""
+    h, p = 21, 8
+    blocks, per_block = R.b2_partial_shape(n, batch, h, p)
+    assert per_block == h * h + 6 * h + 1 + n * 3 * p * R.KERNEL_COEFFS
+    assert 1 <= blocks <= -(-batch // 128)
+    assert blocks * per_block <= 528 * (h * h + 6 * h + 1 + n * 3 * p * 8)
+
+
+_ROW_FITS = (2**31 - 1 - (21 * 21 + 6 * 21 + 1)) // (3 * 8 * 8)
+
+
+@pytest.mark.parametrize("n,batch,fits", [
+    (1, 2**31 - 128, True), (1, 2**31 - 127, False),
+    (50, (2**31 - 1) // 50, True), (50, (2**31 - 1) // 50 + 1, False),
+    (_ROW_FITS, 1, True), (_ROW_FITS + 1, 1, False)])
+def test_sizes_past_the_kernels_32_bit_indices_raise(n, batch, fits):
+    """The path-steps N·B, the paths up to the end of their last 128-wide
+    tile and B2's partial rows of H² + 6H + 1 + N·3·P·D floats are indexed
+    in 32-bit ints, so sizes past them raise before anything builds or
+    launches."""
+    from deepfbsdejsolvers_torch.ops import _build
+
+    if fits:
+        R._check_sizes(n, batch, 21, 8)
+    else:
+        with pytest.raises(ValueError, match="32-bit"):
+            R._check_sizes(n, batch, 21, 8)
+    assert "rollout_fwd" not in _build._LOADED
+    assert "rollout_bwd" not in _build._LOADED
