@@ -24,22 +24,37 @@ Phases, each fatal on failure:
      one tile (37 paths) and one path past whole tiles (1025), and batches
      past B4's 512 blocks of 256-path tiles, so that blocks walk two tiles
      (the quadrature at 2^17 + 37) and three (17 nodes at 2^18 + 37, at
-     hidden 21 and 8); B4 run twice bit for bit;
-3. drive the two training paths through ``SolverGlobalFBSDE`` at batch 2^17
-   for 2 outer epochs of 10 Adam steps each, every kernel's launch counter
-   set to 0 just before a path and read just after:
-   - the speed path (hoisted piecewise tables, ``fused_rollout=True``),
-     which must launch B1 and B2;
-   - the parity path (``make_merton_default()``, the 49-node quadrature
-     swept at every path, ``sweep_impl="pallas"``), which must launch B3
-     and B4 at each of the 50 steps;
+     hidden 21 and 8); and hidden 21 with the quadrature at 2^14 + 37
+     paths on the node feature f = e^J of multistep2/sumlocal2 (0.13 to
+     7.6 where J spans ±2.03); B4 run twice bit for bit;
+3. drive the training paths through their facades at batch 2^17, every
+   kernel's launch counter set to 0 just before a path and read just
+   after; each kernel must have launched exactly the times the code
+   implies for the path, and the others never:
+   - the speed path (``SolverGlobalFBSDE``, hoisted piecewise tables,
+     ``fused_rollout=True``), 2 outer epochs of 10 Adam steps: B1 once a
+     step and once an evaluation, B2 once a step;
+   - the parity path (``SolverGlobalFBSDE(make_merton_default(), ...,
+     sweep_impl="pallas")``, the 49-node quadrature swept at every path),
+     2 × 10 steps: B3 at each of the 50 time steps of a step and of an
+     evaluation, B4 at each of a step's;
+   - the six other schemes in the parity configuration, 2 outer epochs of
+     2 steps each, with ``sweep_impl="pallas"`` where the scheme takes it
+     (multistep2, sumlocal2) and "xla" elsewhere: finite losses, and the
+     launches of ``SCHEMES``;
 4. time a training step of each path (``cuda_ms``) and profile it, and
    time each kernel and its plain version the same way (``kernel_ms``:
    calls back to back between two CUDA events, after a warm-up) at the
-   path's shapes; B3/B4 also at 5000 Monte-Carlo nodes.
+   path's shapes; B3/B4 also at 5000 Monte-Carlo nodes;
+5. run the accuracy gate ``merton_speed_fused`` through the port's gate
+   runner at its registered budget (3 seeds × 2400 steps, batch 8192,
+   warm Y0): it must pass (|Y0 − 0.271457| ≤ 1e-3 on every seed) and
+   launch B1 and B2 once per step.
 
 The line before the last holds the card's name and power limit
-(nvidia-smi), the one before it the kernels' JSON record; the last line is
+(nvidia-smi), the one before it the kernels' JSON record (each kernel's
+launches on its main path, and per path under ``launches_by_path``); the
+last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -64,6 +79,22 @@ FWD_ABS_TOL, LOSS_REL_TOL, GRAD_REL_TOL = 1e-4, 1e-5, 1e-4
 # B3: max |Δ out| relative to max |out| of the plain sweep
 SWEEP_REL_TOL = 1e-5
 N_QUAD, N_MC = 49, 5000
+# The six other schemes: (facade name, sweep_impl, B3 and B4 launches per
+# training step, B3 launches per validation evaluation).  multistep2 sweeps
+# at each of its N steps; sumlocal2 also before the loop (N + 1 sweeps,
+# whose last step's heads go unused, so N backward sweeps); the evaluation
+# runs no backward; the U-net schemes sweep in plain PyTorch.
+SCHEMES = {
+    "multistep1": ("SumMultiStep1", "xla", 0, 0, 0),
+    "multistep2": ("SumMultiStep2", "pallas", N_STEPS, N_STEPS, N_STEPS),
+    "sumlocal1": ("SumLocal1", "xla", 0, 0, 0),
+    "sumlocal2": ("SumLocal2", "pallas", N_STEPS + 1, N_STEPS,
+                  N_STEPS + 1),
+    "sumlocal_reg": ("SumLocalReg", "xla", 0, 0, 0),
+    "multistep_reg": ("SumMultiStepReg", "xla", 0, 0, 0),
+}
+SCHEME_STEPS, SCHEME_EPOCHS = 2, 2
+GATE = "merton_speed_fused"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
 # FP32 outside the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -306,10 +337,11 @@ def time_kernels(op, inputs) -> dict:
 
 
 def sweep_inputs(hidden: int, node_set: str, batch: int, tag: int,
-                 n_mc: int = N_MC):
+                 n_mc: int = N_MC, exp_feature: bool = False):
     """One call of the parity path's sweep at step 25: a Γ head with
     non-zero biases, the node set in rank-1 form (the 49-node quadrature,
-    or ``n_mc`` Monte-Carlo draws with uniform weights), spots drawn
+    or ``n_mc`` Monte-Carlo draws with uniform weights) on the node feature
+    J, or with ``exp_feature`` e^J (multistep2/sumlocal2), spots drawn
     lognormally around x0, and a cotangent for B4.  Returns ((x, a, c, W1,
     b1, v), g), detached and contiguous on the card."""
     from deepfbsdejsolvers_torch.models.merton import make_merton_default
@@ -330,9 +362,10 @@ def sweep_inputs(hidden: int, node_set: str, batch: int, tag: int,
     else:
         nodes, weights = (t.cuda() for t in
                           model.jump_quadrature(CompensatorSpec()))
+    feat = torch.exp(nodes) if exp_feature else nodes
     with torch.no_grad():
         a, c, v, _ = rank1_three_feature(
-            head, torch.tensor(25.0, device="cuda"), nodes, False, weights)
+            head, torch.tensor(25.0, device="cuda"), feat, False, weights)
     x = model.x0 * torch.exp(0.3 * torch.randn(batch, generator=gen,
                                                device="cuda"))
     g = torch.randn(batch, generator=gen, device="cuda") / batch
@@ -450,22 +483,25 @@ def profile_steps(step, gen, step_ms: float, steps: int = 3) -> None:
         print(f"  {ms:8.4f} ms  x{count:5.1f}  {name[:100]}")
 
 
-def train_path(solver_kw: dict, watch, counters) -> dict:
-    """Phase 3: train one path through ``SolverGlobalFBSDE`` at batch 2^17
-    for 2 outer epochs of 10 steps, with every kernel's launch counter set
-    to 0 just before and read just after; fails unless each kernel of
-    ``watch`` launched at least its count.  Returns the trainer and the
-    launches."""
-    from deepfbsdejsolvers_torch.solvers.api import SolverGlobalFBSDE
+def train_path(solver_kw: dict, per_step: dict, per_eval: dict, counters,
+               facade: str = "Global", steps: int = 10, epochs: int = 2):
+    """Phase 3: train one path through the facade ``facade`` (a key of
+    ``SOLVER_CLASSES``) at batch 2^17 for ``epochs`` outer epochs of
+    ``steps`` steps, with every kernel's launch counter set to 0 just
+    before and read just after; fails unless each kernel launched exactly
+    ``per_step`` times per training step plus ``per_eval`` times per
+    epoch's validation evaluation (a kernel absent from both: never).
+    Returns the trainer and the launches."""
+    from deepfbsdejsolvers_torch.solvers.api import SOLVER_CLASSES
     from deepfbsdejsolvers_torch.solvers.train import make_generator
 
-    trainer = SolverGlobalFBSDE(lrate=4e-4, hidden=(HIDDEN, HIDDEN),
-                                seed=SEED, **solver_kw)
-    y0_init = float(trainer.core.init_params(
-        make_generator("cpu", SEED, 0))["uz"]["y0"])
+    trainer = SOLVER_CLASSES[facade](lrate=4e-4, hidden=(HIDDEN, HIDDEN),
+                                     seed=SEED, **solver_kw)
+    y0_init = float(trainer.core.y0_estimate(trainer.core.init_params(
+        make_generator("cpu", SEED, 0))).detach())
     for fn in counters.values():
         fn.launches = 0
-    y0s, duration = trainer.train(TRAIN_BATCH, TRAIN_BATCH, 10, 2,
+    y0s, duration = trainer.train(TRAIN_BATCH, TRAIN_BATCH, steps, epochs,
                                   verbose=True)
     launches = {k: fn.launches for k, fn in counters.items()}
     print(f"train: launches {launches}, Y0 {y0_init:.6f} -> {y0s}, losses "
@@ -474,15 +510,14 @@ def train_path(solver_kw: dict, watch, counters) -> dict:
         fail("training produced a non-finite loss or Y0")
     if y0s[-1] == y0_init:
         fail("Y0 did not move in training")
-    short = {k: launches[k] for k, least in watch.items()
-             if launches[k] < least}
-    if short:
-        fail(f"kernels of the path launched too few times: {short}, needed "
-             f"{watch}")
+    want = {k: steps * epochs * per_step.get(k, 0)
+            + epochs * per_eval.get(k, 0) for k in counters}
+    if launches != want:
+        fail(f"kernel launches {launches}, the code implies {want}")
     return trainer, launches
 
 
-def time_step(trainer, tag: int, label: str):
+def time_step(trainer, tag: int, label: str, reps: int = 5):
     """Device time of one training step of ``trainer``'s path (CUDA
     events, after a warm-up), its rate, and its profile."""
     from deepfbsdejsolvers_torch.solvers.train import (
@@ -492,7 +527,7 @@ def time_step(trainer, tag: int, label: str):
     loss_fn = trainer.core.build_loss(TRAIN_BATCH)
     step = make_step(loss_fn, make_adam(params, 4e-4), params)
     gen = make_generator("cuda", SEED, tag)
-    step_ms = cuda_ms(lambda: step(gen), reps=5)
+    step_ms = cuda_ms(lambda: step(gen), reps=reps)
     rate = TRAIN_BATCH * N_STEPS / (step_ms * 1e-3)
     print(f"{label} train step: {step_ms:.3f} ms at batch {TRAIN_BATCH}, N "
           f"{N_STEPS} ({rate:.4g} paths·steps/s)")
@@ -507,9 +542,12 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepfbsdejsolvers_torch.experiments import (
+        convergence_gates as gates)
     from deepfbsdejsolvers_torch.models.merton import make_merton_default
     from deepfbsdejsolvers_torch.ops import _build
     from deepfbsdejsolvers_torch.ops import rollout as R
+    from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
     from deepfbsdejsolvers_torch.ops import sweep as S
     from deepfbsdejsolvers_torch.solvers.train import make_generator
 
@@ -562,6 +600,10 @@ def main() -> int:
                                            n_mc))
         if tag == 0:
             check.update(result)
+    print(f"sweep check at H={HIDDEN}, quadrature nodes on the feature "
+          f"e^J, B={CHECK_BATCH}:")
+    check_sweep(*sweep_inputs(HIDDEN, "quadrature", CHECK_BATCH, 11,
+                              exp_feature=True))
     op = R.FusedRolloutOp(model, HIDDEN, n_pieces=PIECES)
 
     # 3. the main paths: training through the facade
@@ -569,13 +611,23 @@ def main() -> int:
                 "B3": S.b3_forward, "B4": S.b4_backward}
     print("speed path (hoisted tables, fused rollout):")
     trainer, launches = train_path(dict(kw, math_model=model),
-                                   {"B1": 20, "B2": 20}, counters)
+                                   {"B1": 1, "B2": 1}, {"B1": 1}, counters)
     print("parity path (direct 49-node sweep, sweep_impl='pallas'):")
     parity, launches_p = train_path(
         dict(math_model=make_merton_default(), sweep_impl="pallas",
              device="cuda"),
-        {"B3": N_STEPS * 22, "B4": N_STEPS * 20}, counters)
+        {"B3": N_STEPS, "B4": N_STEPS}, {"B3": N_STEPS}, counters)
+    by_path = {"speed": dict(launches), "parity": launches_p}
     launches.update({k: launches_p[k] for k in ("B3", "B4")})
+    schemes = {}
+    for scheme, (facade, impl, b3, b4, b3_eval) in SCHEMES.items():
+        print(f"{scheme} (parity configuration, sweep_impl={impl!r}):")
+        schemes[scheme], by_path[scheme] = train_path(
+            dict(math_model=make_merton_default(),
+                 compensator=CompensatorSpec(), sweep_impl=impl,
+                 device="cuda"),
+            {"B3": b3, "B4": b4}, {"B3": b3_eval}, counters, facade=facade,
+            steps=SCHEME_STEPS, epochs=SCHEME_EPOCHS)
 
     # 4. timings at the paths' shapes
     step_ms, rate = time_step(trainer, 4, "speed")
@@ -590,6 +642,24 @@ def main() -> int:
         block = None if node_set == "quadrature" else 2**24 // TRAIN_BATCH
         into.update(time_sweep(args, g, node_block=block))
         del args, g
+    scheme_ms = {scheme: time_step(trainer, 20 + k, scheme, reps=3)[0]
+                 for k, (scheme, trainer) in enumerate(schemes.items())}
+
+    # 5. one accuracy gate through the port's runner
+    print(f"gate {GATE} (3 seeds × 2400 steps, batch 8192):")
+    entry = gates.build_registry()[GATE]
+    for fn in counters.values():
+        fn.launches = 0
+    gate = gates.run_entry(GATE, entry)
+    by_path[GATE] = {k: fn.launches for k, fn in counters.items()}
+    updates = entry["args"]["seeds"] * entry["args"]["steps"]
+    want = {"B1": updates, "B2": updates, "B3": 0, "B4": 0}
+    print(f"gate {GATE}: launches {by_path[GATE]}")
+    if not gate["pass_1e-3"]:
+        fail(f"gate {GATE} failed: max |Y0 − oracle| {gate['abs_error']}")
+    if by_path[GATE] != want:
+        fail(f"gate {GATE} launched {by_path[GATE]}, the code implies "
+             f"{want}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -610,7 +680,10 @@ def main() -> int:
             "name": f"{k} {src}", "route": "cuda",
             "source": f"deepfbsdejsolvers_torch/csrc/{src}.cu",
             "replaces": f"deepfbsdejsolvers_tpu/ops/{tpu}",
-            "launches": launches[k], "max_abs_err": check[k]["max_abs_err"],
+            "launches": launches[k],
+            "launches_by_path": {path: n[k] for path, n in by_path.items()
+                                 if n[k]},
+            "max_abs_err": check[k]["max_abs_err"],
             "rel_err": check[k]["rel_err"], "check": "pass",
             "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -632,7 +705,8 @@ def main() -> int:
     print(json.dumps({"kernels": record, "train_step_ms": step_ms,
                       "paths_steps_per_s": rate,
                       "parity_train_step_ms": pstep_ms,
-                      "parity_paths_steps_per_s": prate}))
+                      "parity_paths_steps_per_s": prate,
+                      "scheme_train_step_ms": scheme_ms, "gate": gate}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

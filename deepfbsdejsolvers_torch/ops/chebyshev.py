@@ -3,8 +3,9 @@
 ``comp(x) = E_J[Γ(t, x, J)]`` and the Merton price A(i, x) are smooth
 functions of x alone, so they are evaluated exactly at n Chebyshev points
 spanning the batch's spot range, fitted by a DCT matrix, and reconstructed per
-path with a Clenshaw recurrence.  The interval endpoints are detached: the
-interval is a numerical device, not part of the function differentiated.
+path as the sum of the series (``ChebSeries``).  The interval endpoints are
+detached: the interval is a numerical device, not part of the function
+differentiated.
 """
 
 from __future__ import annotations
@@ -48,18 +49,75 @@ def cheb_fit(values: torch.Tensor) -> torch.Tensor:
     return torch.matmul(values, f.T)
 
 
+@functools.lru_cache(maxsize=None)
+def _deriv_matrix(n: int, device: torch.device) -> torch.Tensor:
+    """D (n, n) with Σ_k (D c)_k T_k = d/du Σ_j c_j T_j: (D c)_k =
+    (2 − δ_k0)·Σ_{j>k, j−k odd} j·c_j."""
+    j = np.arange(n)
+    odd = (j[None, :] > j[:, None]) & ((j[None, :] - j[:, None]) % 2 == 1)
+    d = np.where(odd, 2.0 * j[None, :], 0.0)
+    d[0] *= 0.5
+    return torch.as_tensor(d.astype(np.float32), device=device)
+
+
+def cheb_basis(u: torch.Tensor, n: int) -> torch.Tensor:
+    """T_0(u) … T_{n−1}(u) on a new last axis, by the three-term
+    recurrence."""
+    u2 = 2.0 * u
+    t = [torch.ones_like(u), u]
+    for _ in range(2, n):
+        t.append(u2 * t[-1] - t[-2])
+    return torch.stack(t[:n], -1)
+
+
+def cheb_deriv_coef(coef: torch.Tensor) -> torch.Tensor:
+    """The coefficients (..., n) of d/du Σ_j coef_j T_j(u)."""
+    dmat = _deriv_matrix(coef.shape[-1], coef.device)
+    return coef @ dmat.to(coef.dtype).T
+
+
+class ChebSeries(torch.autograd.Function):
+    """sum_j coef[..., j] T_j(u), coef (..., n) broadcasting against u (...).
+
+    The forward builds the basis T_0(u) … T_{n−1}(u) (``cheb_basis``) and
+    sums it against coef; it keeps the basis, so the backward is a few
+    tensor operations: ∂/∂coef_j = T_j(u), and ∂/∂u is the derivative
+    series (``cheb_deriv_coef``) on the same basis.  Autograd then records
+    one node per evaluation instead of several per term: the evaluations
+    sit in every step of the un-hoisted Chebyshev and hoisted paths, whose
+    loops are bound by the cost per operation at small batches."""
+
+    @staticmethod
+    def forward(ctx, coef, u):
+        basis = cheb_basis(u, coef.shape[-1])
+        ctx.save_for_backward(coef, basis)
+        return (basis * coef).sum(-1)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        coef, basis = ctx.saved_tensors
+        grad_coef = grad_u = None
+        if ctx.needs_input_grad[0]:
+            grad_coef = (g[..., None] * basis).sum_to_size(coef.shape)
+        if ctx.needs_input_grad[1]:
+            grad_u = (g * (basis * cheb_deriv_coef(coef)).sum(-1)
+                      ).sum_to_size(basis.shape[:-1])
+        return grad_coef, grad_u
+
+
+def cheb_series(coef: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """sum_j coef[..., j] T_j(u), differentiable in both (``ChebSeries``)."""
+    return ChebSeries.apply(coef, u)
+
+
 def cheb_eval(coef: torch.Tensor, x: torch.Tensor, x_lo: torch.Tensor,
               x_hi: torch.Tensor) -> torch.Tensor:
-    """sum_j coef_j T_j(u(x)) by Clenshaw; x outside [x_lo, x_hi] clamps."""
+    """sum_j coef_j T_j(u(x)); x outside [x_lo, x_hi] clamps."""
     x_lo, x_hi = x_lo.detach(), x_hi.detach()
     span = torch.clamp(x_hi - x_lo, min=1e-6)
     u = torch.clamp((2.0 * x - (x_lo + x_hi)) / span, -1.0, 1.0)
-    n = coef.shape[-1]
-    b1 = torch.zeros_like(u)
-    b2 = torch.zeros_like(u)
-    for j in range(n - 1, 0, -1):
-        b1, b2 = coef[..., j] + 2.0 * u * b1 - b2, b1
-    return coef[..., 0] + u * b1 - b2
+    return cheb_series(coef, u)
 
 
 def _range_of(x: torch.Tensor, robust_sigmas) -> tuple:

@@ -1,10 +1,12 @@
 """Piecewise Chebyshev collocation: P pieces × local degree-(D-1) series.
 
 The same 64 degrees of freedom as a global degree-63 Chebyshev interpolant,
-arranged as P=8 local degree-7 series, evaluate in a piece lookup plus 2(D-1)
-Clenshaw FMAs per path.  Per piece the function is sampled at D Chebyshev
-points and the local Chebyshev coefficients come from the inverse of the
-collocation matrix T_k(t_i), which is sqrt(2)-conditioned at every degree.
+arranged as P=8 local degree-7 series, evaluate in a piece lookup plus a
+degree-7 series per path (in the CUDA kernels by Clenshaw's recurrence, here
+as the sum of its basis, ``chebyshev.cheb_series``).  Per piece the
+function is sampled at D Chebyshev points and the local Chebyshev
+coefficients come from the inverse of the collocation matrix T_k(t_i),
+which is sqrt(2)-conditioned at every degree.
 
 The per-path piece select is an exact gather (``coef[k]``), where the JAX
 package uses a one-hot matmul because gathers are slow on a TPU.  Piece
@@ -18,6 +20,9 @@ import functools
 
 import numpy as np
 import torch
+
+from deepfbsdejsolvers_torch.ops.chebyshev import (
+    cheb_basis, cheb_deriv_coef, cheb_series)
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,22 +91,12 @@ def _locate(coef: torch.Tensor, x: torch.Tensor, x_lo: torch.Tensor,
     return coef[k.long()], t, s_raw, span
 
 
-def _clenshaw(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """sum_k c[..., k] T_k(t) by Clenshaw; c (..., D), t like c[..., 0]."""
-    d = c.shape[-1]
-    b1 = torch.zeros_like(c[..., 0])
-    b2 = b1
-    for k in range(d - 1, 0, -1):
-        b1, b2 = c[..., k] + 2.0 * t * b1 - b2, b1
-    return c[..., 0] + t * b1 - b2
-
-
 def pw_eval(coef: torch.Tensor, x: torch.Tensor, x_lo: torch.Tensor,
             x_hi: torch.Tensor) -> torch.Tensor:
     """Evaluate one step's piecewise interpolant: coef (P, D), x (B,),
     x_lo/x_hi scalars."""
     c, t, _, _ = _locate(coef, x, x_lo, x_hi)
-    return _clenshaw(c, t)
+    return cheb_series(c, t)
 
 
 def pw_eval_with_deriv(coef: torch.Tensor, x: torch.Tensor,
@@ -110,15 +105,8 @@ def pw_eval_with_deriv(coef: torch.Tensor, x: torch.Tensor,
     is clamped, as autograd of pw_eval gives."""
     p = coef.shape[-2]
     c, t, s_raw, span = _locate(coef, x, x_lo, x_hi)
-    d = c.shape[-1]
-    b1 = torch.zeros_like(t)
-    b2 = b1
-    db1 = torch.zeros_like(t)
-    db2 = db1
-    for j in range(d - 1, 0, -1):
-        b1, b2, db1, db2 = (c[..., j] + 2.0 * t * b1 - b2, b1,
-                            2.0 * b1 + 2.0 * t * db1 - db2, db1)
-    val = c[..., 0] + t * b1 - b2
-    dval = b1 + t * db1 - db2
+    basis = cheb_basis(t, c.shape[-1])
+    val = (basis * c).sum(-1)
+    dval = (basis * cheb_deriv_coef(c)).sum(-1)
     inside = ((s_raw >= 0.0) & (s_raw <= 1.0)).to(x.dtype)
     return val, dval * (2.0 * p / span) * inside

@@ -1,20 +1,23 @@
 """Reference-parity solver classes.
 
-``SolverGlobalFBSDE(math_model, lrate, ...).train(batchSize, batchSizeVal,
-num_epoch, num_epochExt) -> (listY0, duration)``, the surface of the
-reference's solver classes, over the functional core in
-:mod:`deepfbsdejsolvers_torch.solvers.pricing`.  Only the global scheme is
-ported so far, in two configurations:
+One class per scheme, ``SolverGlobalFBSDE(math_model, lrate, ...)
+.train(batchSize, batchSizeVal, num_epoch, num_epochExt) -> (listY0,
+duration)``, the surface of the reference's solver classes, over the
+functional core in :mod:`deepfbsdejsolvers_torch.solvers.pricing`;
+``SOLVER_CLASSES`` maps the reference's method names to them.  Two
+configurations of note:
 
-* the reference-faithful parity configuration,
+* the reference-faithful parity configuration, e.g.
   ``SolverGlobalFBSDE(make_merton_default(), lrate, sweep_impl="pallas")``:
   exact Poisson jumps, the per-path series price, and every step the Γ head
   swept over the 49-node quadrature (or, with
   ``CompensatorSpec(kind="mc")``, 5000 fresh Monte-Carlo nodes) at every
-  path, on the card by the CUDA kernels B3/B4;
+  path, on the card by the CUDA kernels B3/B4 for the schemes with a Γ net
+  (global, multistep2, sumlocal2);
 * the speed configuration, hoisted piecewise tables
   (``hoist=True, hoist_interp="piecewise"``, a collocated model and
-  compensator), with ``fused_rollout=True`` the CUDA kernels B1/B2.
+  compensator), for the global scheme with ``fused_rollout=True`` the CUDA
+  kernels B1/B2.
 """
 
 from __future__ import annotations
@@ -77,3 +80,46 @@ class _SolverFacade:
 class SolverGlobalFBSDE(_SolverFacade):
     """Trainable-Y0 global deep-BSDE."""
     scheme = "global"
+
+
+class SolverMultiStepFBSDE1(_SolverFacade):
+    """One-net multistep forward replication."""
+    scheme = "multistep1"
+
+
+class SolverMultiStepFBSDE2(_SolverFacade):
+    """Two-net multistep forward replication."""
+    scheme = "multistep2"
+
+
+class SolverSumLocalFBSDE1(_SolverFacade):
+    """One-net one-step residual scheme."""
+    scheme = "sumlocal1"
+
+
+class SolverSumLocalFBSDE2(_SolverFacade):
+    """Two-net one-step residual scheme."""
+    scheme = "sumlocal2"
+
+
+class SolverGlobalSumLocalReg(_SolverFacade):
+    """Y-only local regression.  The reference trains it with 1000× the
+    nominal batch; pass the batch you want, there is no hidden
+    multiplier."""
+    scheme = "sumlocal_reg"
+
+
+class SolverGlobalMultiStepReg(_SolverFacade):
+    """Y-only multistep regression."""
+    scheme = "multistep_reg"
+
+
+SOLVER_CLASSES = {
+    "Global": SolverGlobalFBSDE,
+    "SumMultiStep1": SolverMultiStepFBSDE1,
+    "SumMultiStep2": SolverMultiStepFBSDE2,
+    "SumLocal1": SolverSumLocalFBSDE1,
+    "SumLocal2": SolverSumLocalFBSDE2,
+    "SumLocalReg": SolverGlobalSumLocalReg,
+    "SumMultiStepReg": SolverGlobalMultiStepReg,
+}

@@ -1,30 +1,48 @@
-"""Deep-BSDE pricing solver: the global scheme, hoisted or per step.
+"""Deep-BSDE pricing solver: the seven schemes of the jump-diffusion regime.
 
-The global scheme trains a scalar Y0 and the Γ and Z heads against the
-terminal loss E(Y_N − g(X_N))².  All noise is drawn up front (``_prenoise``):
-dW and J as (N, B) tensors, and with the Monte-Carlo compensator the (N,
-n_mc) node draws of every step.  Then one of two rollouts:
+The BSDE is dY = −f(Y) dt + Z dW + Γ dΠ̃, with Γ's compensator E_J[Γ]
+evaluated by a sweep over the jump law.  The schemes differ in the loss and
+in how Γ is parametrized:
 
-* hoisted (``hoist=True``): the per-step tables are built outside the time
-  loop (``_hoist_tables``) — each step's spot interval comes from the
-  uncoupled log-increments of the drawn noise, and the compensator E_J[Γ],
-  the collocated price A(i, x) and the Z head are fitted on it — and the
-  coupled N-step rollout reads them (``ops/rollout.py``): step by step in
-  PyTorch, or with ``fused_rollout=True`` as the B1/B2 CUDA kernels;
-* per step (``hoist=False``, the reference-faithful parity path): every
-  step evaluates Γ at the realized jump and Z by the heads, A(i, x) by the
-  model's pricer, and the compensator by sweeping the Γ head over the node
-  set for every path (``x_interp="direct"``) or at ``n_cheb`` collocation
-  points (``"chebyshev"``).  With ``sweep_impl="pallas"`` the direct sweep
-  runs in the rank-1 form of ``ops/sweep.py``: on the card as the B3/B4
+* ``global``: a trainable scalar Y0, the terminal loss E(Y_N − g(X_N))²;
+* ``multistep1/2``: the forward-replication loss
+  mean_i E(Y_i + Σ_{j≥i} toAdd_j − g(X_N))², the reference's "add toAdd to
+  every earlier entry" as a suffix sum, reduced by a mean over steps;
+* ``sumlocal1/2``: the one-step residual loss Σ_i E(Y_{i+1} − Y_i + toAdd_i)²;
+* ``multistep_reg``/``sumlocal_reg``: the same losses on Y alone.
+
+The "1" schemes take Γ from the 2-output U-net, Γ = U(t, X·e^J)[0]; the "2"
+schemes and ``global`` carry a Γ net on (t, X, f) with f = J for
+``global`` and f = e^J for multistep2/sumlocal2.
+
+All noise is drawn up front (``_prenoise``): dW and J as (rows, B) tensors,
+and with the Monte-Carlo compensator the (rows, n_mc) node draws of every
+step; the sumlocal schemes draw N + 1 rows, whose last feeds the heads
+evaluated before the loop.  Then the time loop runs either
+
+* hoisted (``hoist=True``): per-step tables built outside the loop
+  (``_hoist_tables``) — each step's spot interval comes from the uncoupled
+  log-increments of the drawn noise, and the compensator E_J[Γ], the
+  collocated price A(i, x) and, for ``global``, the Z head are fitted on it.
+  The global rollout reads them in ``ops/rollout.py`` (step by step, or with
+  ``fused_rollout=True`` as the B1/B2 CUDA kernels); the other schemes read
+  them in their own loops.  The sumlocal tables span the x_{i+1} marginal
+  (``shift_next``) and hold no price table;
+* or per step (``hoist=False``, the reference-faithful parity path): every
+  step evaluates the heads, A(i, x) by the model's pricer, and the
+  compensator by sweeping Γ over the node set for every path
+  (``x_interp="direct"``) or at ``n_cheb`` collocation points
+  (``"chebyshev"``).  With ``sweep_impl="pallas"`` the direct sweep of a Γ
+  net runs in the rank-1 form of ``ops/sweep.py``: on the card as the B3/B4
   CUDA kernels.
 
-The time feature fed to the nets is the raw step index i (times
-``time_scale``), not i·dt, as in the reference.
+Reference idiosyncrasies kept on purpose: the time feature fed to the nets
+is the raw step index i (times ``time_scale``), not i·dt; the sumlocal
+schemes evaluate the step-(i+1) state with time feature i and carry the
+jump of the row before into the next forward step.
 
-Only the global scheme of the jump-diffusion regime is ported so far.  The
-other six schemes, the 2-D Γ tables, the hand-written adjoint, bf16 heads
-and compensator sharding raise NotImplementedError (ROADMAP Queue 1).
+The pure-jump regime, the 2-D Γ tables, the hand-written adjoint, bf16
+heads and compensator sharding raise NotImplementedError (ROADMAP Queue 1).
 ``scan_chunk`` is accepted and ignored: it shapes the JAX package's XLA
 scan, and the port has no scan.
 """
@@ -48,15 +66,24 @@ from deepfbsdejsolvers_torch.ops.numerics import use_full_f32
 from deepfbsdejsolvers_torch.ops.piecewise import pw_fit, pw_nodes
 from deepfbsdejsolvers_torch.ops.rollout import (
     KERNEL_COEFFS, KERNEL_WIDTHS, FusedRolloutOp, merton_form_constants,
-    rollout_plain)
+    rollout_plain, table_eval)
 from deepfbsdejsolvers_torch.ops.sweep import fused_sweep, rank1_three_feature
 
 PRICING_SCHEMES = ("global", "multistep1", "multistep2", "sumlocal1",
                    "sumlocal2", "sumlocal_reg", "multistep_reg")
+# Schemes whose Γ is a net of its own on (t, X, f), and the regressions,
+# which have no Γ and no Z.
+_GAMMA_NET_SCHEMES = ("global", "multistep2", "sumlocal2")
+_REGRESSIONS = ("sumlocal_reg", "multistep_reg")
 
 Params = Dict[str, dict]
 
 _NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
+
+
+def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
+    """S_i = Σ_{j≥i} x_j along axis 0: the multistep accumulation."""
+    return torch.flip(torch.cumsum(torch.flip(x, (0,)), 0), (0,))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +98,9 @@ class PricingSolver:
     PyTorch; "pallas" sweeps its rank-1 form (``ops/sweep.py``), which on
     CUDA tensors runs the CUDA kernels B3 (forward) and B4 (backward) and on
     CPU tensors their plain version.  It reaches the per-step direct sweep
-    and the hoisted Monte-Carlo table build, as in the JAX package.
+    and the hoisted Monte-Carlo table build, as in the JAX package, for the
+    schemes with a Γ net; multistep1/sumlocal1 sweep their 2-output U-net,
+    which the kernels do not take, and refuse it.
     ``remat`` runs each step's plain sweep under ``torch.utils.checkpoint``,
     so that only its (B,) output persists until the backward.
     """
@@ -105,9 +134,6 @@ class PricingSolver:
         if self.model.regime != "jump_diffusion":
             raise NotImplementedError(
                 f"regime {self.model.regime!r} {_NOT_PORTED}, item 10")
-        if self.scheme != "global":
-            raise NotImplementedError(
-                f"scheme {self.scheme!r} {_NOT_PORTED}, item 9")
         if self.hoist_interp not in ("piecewise", "clenshaw"):
             raise ValueError("hoist_interp must be 'piecewise' or "
                              f"'clenshaw', got {self.hoist_interp!r}")
@@ -132,7 +158,8 @@ class PricingSolver:
             "compute_dtype": self.compute_dtype is not None,
             "hoist_gamma": self.hoist_gamma,
             "adjoint": self.adjoint,
-            "hoist_z=False with hoist=True": self.hoist and not self.hoist_z,
+            "hoist_z=False with hoist=True":
+                self.hoist and not self.hoist_z and self.scheme == "global",
             "price_mode != 'chebyshev' with hoist=True":
                 self.hoist and not self._price_collocated(),
         }
@@ -152,11 +179,30 @@ class PricingSolver:
     def _price_collocated(self) -> bool:
         return getattr(self.model, "price_mode", None) == "chebyshev"
 
+    @property
+    def use_gam_net(self) -> bool:
+        """Whether Γ is a net of its own (else the U-net's first output)."""
+        return self.scheme in _GAMMA_NET_SCHEMES
+
+    @property
+    def with_heads(self) -> bool:
+        """Whether the loss carries Z and Γ (all but the regressions)."""
+        return self.scheme not in _REGRESSIONS
+
     def net_specs(self) -> Dict[str, MLPSpec]:
-        """UZ net carries Y0 and outputs Z; the Γ net takes (t, X, J)."""
+        """The nets per scheme: ``global`` a UZ net carrying Y0 with output
+        Z; multistep1/2 and sumlocal1/2 a U-net with outputs (Y, Z); the
+        regressions a U-net with output Y; and a Γ net on (t, X, f) for
+        the schemes that carry one."""
         h, a = self.hidden, self.activation
-        return {"uz": MLPSpec(2, h, 1, a, with_y0=True),
-                "gam": MLPSpec(3, h, 1, a)}
+        if self.scheme == "global":
+            specs = {"uz": MLPSpec(2, h, 1, a, with_y0=True)}
+        else:
+            specs = {"uz": MLPSpec(2, h, 1 if self.scheme in _REGRESSIONS
+                                   else 2, a)}
+        if self.use_gam_net:
+            specs["gam"] = MLPSpec(3, h, 1, a)
+        return specs
 
     def init_params(self, generator: torch.Generator) -> Params:
         """Glorot-normal heads drawn from a CPU ``generator``, on
@@ -177,19 +223,39 @@ class PricingSolver:
         t = torch.broadcast_to(self._time(i, x), x.shape)
         return self._apply(params["uz"], torch.stack([t, x], -1))
 
+    def _node_feature(self, j):
+        """The Γ net's jump feature f: J for ``global``, e^J for
+        multistep2/sumlocal2."""
+        return j if self.scheme == "global" else torch.exp(j)
+
     def _gamma_inputs(self, i, x, j):
-        """Γ-head inputs (t, X, J) broadcast to one shape."""
-        t = self._time(i, x)
-        t, xb, jb = torch.broadcast_tensors(t, x, j)
-        return torch.stack([t, xb, jb], -1)
+        """Γ-net inputs (t, X, f) broadcast to one shape, f =
+        ``_node_feature(J)``."""
+        t, xb, fb = torch.broadcast_tensors(self._time(i, x), x,
+                                            self._node_feature(j))
+        return torch.stack([t, xb, fb], -1)
+
+    def _unet_jump_inputs(self, i, x, j):
+        """U-net inputs (t, X·e^J) of Γ for multistep1/sumlocal1."""
+        t, xb, jb = torch.broadcast_tensors(self._time(i, x), x, j)
+        return torch.stack([t, xb * torch.exp(jb)], -1)
+
+    def _gamma_head(self, params, i, x, j) -> torch.Tensor:
+        """Γ(t, X, J), broadcast over (i, x, j): the Γ net, or the U-net's
+        first output at (t, X·e^J)."""
+        if self.use_gam_net:
+            return self._apply(params["gam"],
+                               self._gamma_inputs(i, x, j))[..., 0]
+        return self._apply(params["uz"],
+                           self._unet_jump_inputs(i, x, j))[..., 0]
 
     def _sweep_comp_at(self, params, i, x_pts, nodes, weights):
         """E_J[Γ(t, x, J)] at spot points ``x_pts`` (..., C) by the
         weighted node sweep; ``i`` broadcasts against ``x_pts``, and
         ``nodes`` is one (M,) set or one set per leading index (..., M)."""
         i = torch.as_tensor(i, device=x_pts.device)[..., None, None]
-        sweep = self._apply(params["gam"], self._gamma_inputs(
-            i, x_pts[..., None, :], nodes[..., :, None]))[..., 0]  # (..., M, C)
+        sweep = self._gamma_head(params, i, x_pts[..., None, :],
+                                 nodes[..., :, None])         # (..., M, C)
         return compensated_mean(sweep.movedim(-2, 0), weights)
 
     # ----------------------------------------------------- compensator sweep
@@ -213,7 +279,7 @@ class PricingSolver:
         return int(block)
 
     def _sweep_mean(self, params, i, x, nodes, weights) -> torch.Tensor:
-        """E_J[Γ(t, x_b, J)] for every path by the plain sweep of the Γ MLP
+        """E_J[Γ(t, x_b, J)] for every path by the plain sweep of the Γ head
         over the node set.  Above the node block it sums per-block weighted
         partials, each block rematerialized, so the backward replays one
         block at a time and peak memory is O(block·B)."""
@@ -233,14 +299,16 @@ class PricingSolver:
                    zip(nodes.view(n_blocks, block), w.view(n_blocks, block)))
 
     def _rank1_sweep_mean(self, params, i, x, nodes, weights) -> torch.Tensor:
-        """The same expectation through the rank-1 sweep (``ops/sweep.py``):
-        kernels B3/B4 on CUDA tensors, their plain version on CPU tensors.
+        """The same expectation through the rank-1 sweep of the Γ net
+        (``ops/sweep.py``): kernels B3/B4 on CUDA tensors, their plain
+        version on CPU tensors, on the node feature ``_node_feature``.
         ``weights=None`` means uniform (the Monte-Carlo node set)."""
         if weights is None:
             weights = torch.full_like(nodes, 1.0 / nodes.shape[0])
         gam = params["gam"]
-        a, c, v, wb2 = rank1_three_feature(gam, self._time(i, x), nodes,
-                                           False, weights)
+        a, c, v, wb2 = rank1_three_feature(gam, self._time(i, x),
+                                           self._node_feature(nodes), False,
+                                           weights)
         return fused_sweep(x, a, c, gam["W"][1], gam["b"][1], v) + wb2
 
     def _gamma_and_compensator(self, params, i, x, j, mc_nodes):
@@ -248,7 +316,7 @@ class PricingSolver:
         one un-hoisted step, both (B,).  The compensator sweeps the step's
         Monte-Carlo draws ``mc_nodes`` (uniform weights) or the quadrature,
         at every path or at ``n_cheb`` collocation points."""
-        gam = self._apply(params["gam"], self._gamma_inputs(i, x, j))[..., 0]
+        gam = self._gamma_head(params, i, x, j)
         spec = self.compensator
         nodes, weights = ((mc_nodes, None) if spec.kind == "mc"
                           else self._quad)
@@ -266,22 +334,50 @@ class PricingSolver:
             comp = self._sweep_mean(params, i, x, nodes, weights)
         return gam, comp
 
+    def _heads_gamma_comp(self, params, tables, i, x, j, mc_nodes):
+        """(Γ at the realized jump, compensator) of step ``i``: the
+        compensator read from the hoisted tables when there are any, else
+        the un-hoisted machinery."""
+        if tables is None:
+            return self._gamma_and_compensator(params, i, x, j, mc_nodes)
+        comp = table_eval(tables["cc"][i], x, tables["lo"][i],
+                          tables["hi"][i])
+        return self._gamma_head(params, i, x, j), comp
+
+    @staticmethod
+    def _step_price(tables, i, x):
+        """The hoisted A(i, x) for the forward drift, or None to evaluate
+        the model's own pricer."""
+        if tables is None or "pc" not in tables:
+            return None
+        return table_eval(tables["pc"][i], x, tables["lo"][i],
+                          tables["hi"][i])
+
     # ---------------------------------------------------------------- noise
-    def _prenoise(self, generator: torch.Generator, batch: int):
-        """All rollout noise at once, on the generator's device: dW (N, B)
-        Brownian increments, J (N, B) realized jumps, and with the
-        Monte-Carlo compensator the (N, n_mc) node draws of every step."""
-        n, dt = self.model.N, self.model.dt
-        dw = math.sqrt(dt) * torch.randn((n, batch), generator=generator,
-                                         device=generator.device)
-        j = self.model.sample_jumps(generator, (n, batch))
+    @property
+    def noise_rows(self) -> int:
+        """Rows of noise a loss draws: N, or N + 1 for the sumlocal schemes,
+        whose last row feeds the heads evaluated before the loop."""
+        n = self.model.N
+        return n + 1 if self.scheme.startswith("sumlocal") else n
+
+    def _prenoise(self, generator: torch.Generator, batch: int,
+                  rows: Optional[int] = None):
+        """All rollout noise at once, on the generator's device: dW (rows, B)
+        Brownian increments, J (rows, B) realized jumps, and with the
+        Monte-Carlo compensator the (rows, n_mc) node draws of every step.
+        ``rows`` defaults to N."""
+        rows = self.model.N if rows is None else rows
+        dw = math.sqrt(self.model.dt) * torch.randn(
+            (rows, batch), generator=generator, device=generator.device)
+        j = self.model.sample_jumps(generator, (rows, batch))
         if self.compensator.kind == "mc":
             return dw, j, self.model.sample_jumps(
-                generator, (n, self.compensator.n_mc))
+                generator, (rows, self.compensator.n_mc))
         return dw, j
 
     def _check_noise(self, noise, batch: int) -> None:
-        n, mc = self.model.N, self.compensator.kind == "mc"
+        n, mc = self.noise_rows, self.compensator.kind == "mc"
         want = [(n, batch), (n, batch)] + ([(n, self.compensator.n_mc)]
                                            if mc else [])
         got = [tuple(t.shape) for t in noise]
@@ -290,21 +386,26 @@ class PricingSolver:
                              f") of shapes {want}, got {got}")
 
     # ------------------------------------------------- hoisted collocation
-    def _hoist_tables(self, params, noise) -> dict:
-        """Per-step tables {"lo", "hi", "cc", "pc", "zc"} built outside the
-        time loop.  The intervals come from the exact uncoupled X marginals
-        of the drawn noise, padded in log space by ``hoist_pad_frac``; the
-        coupling drift the intervals ignore is covered by the pad and the
-        evaluators' boundary clamp.  The compensator sweeps the quadrature,
-        or each step's Monte-Carlo draws (through the rank-1 sweep under
-        ``sweep_impl="pallas"``, one call per step, as in the JAX
-        package)."""
+    def _hoist_tables(self, params, noise, shift_next: bool = False) -> dict:
+        """Per-step tables {"lo", "hi", "cc"[, "pc"][, "zc"]} built outside
+        the time loop from the first N rows of ``noise``.  The intervals
+        come from the exact uncoupled X marginals of the drawn noise, padded
+        in log space by ``hoist_pad_frac``; the coupling drift the intervals
+        ignore is covered by the pad and the evaluators' boundary clamp.
+        ``shift_next`` fits row i on the x_{i+1} marginal, where the
+        sumlocal schemes evaluate their step-i heads; those schemes price
+        the forward drift at X_i un-hoisted, so no price table is built
+        then.  The Z table "zc" is the global scheme's only.  The
+        compensator sweeps the quadrature, or each step's Monte-Carlo draws
+        (through the rank-1 sweep under ``sweep_impl="pallas"``, one call
+        per step, as in the JAX package)."""
         model, n = self.model, self.model.N
         dw, j = noise[0], noise[1]
         incr = model.uncoupled_log_increments(dw[:n], j[:n])
         csum = torch.cumsum(incr, dim=0)
-        lx = math.log(model.x0) + torch.cat(
-            [torch.zeros_like(csum[:1]), csum[:-1]], dim=0)        # x_i
+        if not shift_next:                                          # x_i
+            csum = torch.cat([torch.zeros_like(csum[:1]), csum[:-1]], dim=0)
+        lx = math.log(model.x0) + csum
         llo = lx.min(dim=1).values
         lhi = lx.max(dim=1).values
         lpad = self.hoist_pad_frac * (lhi - llo) + 0.01
@@ -323,18 +424,19 @@ class PricingSolver:
                 self._rank1_sweep_mean(params, i, nodes[i], noise[2][i], None)
                 for i in range(n)])
         elif self.compensator.kind == "mc":
-            comp = self._sweep_comp_at(params, steps[:, 0], nodes, noise[2],
-                                       None)
+            comp = self._sweep_comp_at(params, steps[:, 0], nodes,
+                                       noise[2][:n], None)
         else:
             comp = self._sweep_comp_at(params, steps[:, 0], nodes,
                                        *self._quad)
-        return {
-            "lo": lo, "hi": hi, "cc": fit(comp),
-            "pc": fit(model.price(steps, nodes)),
-            "zc": fit(self._uz(params, steps, nodes)[..., 0]),
-        }
+        out = {"lo": lo, "hi": hi, "cc": fit(comp)}
+        if not shift_next:
+            out["pc"] = fit(model.price(steps, nodes))
+        if self.scheme == "global":
+            out["zc"] = fit(self._uz(params, steps, nodes)[..., 0])
+        return out
 
-    # --------------------------------------------------------------- global
+    # ----------------------------------------------------- kernel conditions
     def _head_unmet(self) -> List[str]:
         """Why the Γ head does not fit the CUDA kernels: they take two equal
         tanh hidden layers of a width they are built for."""
@@ -349,9 +451,12 @@ class PricingSolver:
 
     def fused_unmet(self) -> List[str]:
         """The unmet preconditions of the fused rollout kernels (empty when
-        they apply): the hoisted piecewise path, a Merton-form model, a
-        head the kernels take, and degree-7 tables."""
+        they apply): the global scheme on the hoisted piecewise path, a
+        Merton-form model, a head the kernels take, and degree-7 tables."""
         reasons = []
+        if self.scheme != "global":
+            reasons.append(f"scheme {self.scheme!r}: the kernels run the "
+                           "global scheme's rollout")
         if not self.hoist or self.hoist_interp != "piecewise":
             reasons.append("needs hoist=True and hoist_interp='piecewise'")
         reasons += self._head_unmet()
@@ -365,10 +470,15 @@ class PricingSolver:
 
     def sweep_unmet(self) -> List[str]:
         """The unmet preconditions of the sweep kernels B3/B4 (empty when
-        they apply): a head the kernels take (the Γ head has one output),
-        f32 heads, and no compensator sharding.  The JAX package warns and
-        falls back to its XLA sweep on these; the port refuses them."""
+        they apply): a swept head the kernels take (a Γ net of one output,
+        not the 2-output U-net of multistep1/sumlocal1), f32 heads, and no
+        compensator sharding.  The JAX package warns and falls back to its
+        XLA sweep on these; the port refuses them."""
         reasons = self._head_unmet()
+        if not self.use_gam_net and self.with_heads:
+            reasons.append(f"scheme {self.scheme!r} sweeps the 2-output "
+                           "U-net, Γ = U(t, X·e^J)[0]; the kernels take a "
+                           "Γ net of one output")
         if self.compute_dtype is not None:
             reasons.append(f"compute_dtype {self.compute_dtype!r}: the "
                            "kernels compute in f32")
@@ -377,6 +487,7 @@ class PricingSolver:
                            "set")
         return reasons
 
+    # --------------------------------------------------------------- global
     def _rollout(self) -> Callable:
         if self.fused_rollout:
             return FusedRolloutOp(self.model, self.hidden[0],
@@ -386,38 +497,132 @@ class PricingSolver:
         return lambda gp, y0, tables, dw, j: rollout_plain(
             self.model, gp, y0, tables, dw, j, self.time_scale, self._act)
 
-    def _rollout_direct(self, params, noise):
+    def _mc_rows(self, noise):
+        """The per-step Monte-Carlo node draws of ``noise``, or a row of
+        Nones without the Monte-Carlo compensator."""
+        if self.compensator.kind == "mc":
+            return noise[2]
+        return [None] * noise[0].shape[0]
+
+    def _rollout_direct(self, params, noise, trace: bool = False):
         """(x_N, y_N) of the un-hoisted global rollout: each step's heads,
-        compensator sweep and pricer evaluated in the step."""
+        compensator sweep and pricer evaluated in the step.  With ``trace``
+        the (N + 1, B) trajectories of X and Y instead."""
         model, dt = self.model, self.model.dt
-        dw, j = noise[0], noise[1]
-        mc = noise[2] if self.compensator.kind == "mc" else None
+        dw, j, mc = noise[0], noise[1], self._mc_rows(noise)
         x = model.init_x(dw.shape[1], dw.device)
         y = params["uz"]["y0"] * torch.ones_like(x)
+        xs, ys = [x], [y]
         for i in range(model.N):
-            gam, comp = self._gamma_and_compensator(
-                params, i, x, j[i], None if mc is None else mc[i])
+            gam, comp = self._gamma_and_compensator(params, i, x, j[i], mc[i])
             y = y - dt * model.f(y) + gam - comp
             y = y + self._uz(params, i, x)[..., 0] * dw[i]
             x = model.step(i, x, dw[i], j[i], y)
-        return x, y
+            if trace:
+                xs.append(x)
+                ys.append(y)
+        return (torch.stack(xs), torch.stack(ys)) if trace else (x, y)
 
+    def _global_loss(self, params, noise, roll):
+        if self.hoist:
+            x_n, y_n = roll(params["gam"], params["uz"]["y0"],
+                            self._hoist_tables(params, noise), noise[0],
+                            noise[1])
+        else:
+            x_n, y_n = self._rollout_direct(params, noise)
+        return torch.mean(torch.square(y_n - self.model.payoff(x_n)))
+
+    # ------------------------------------------------------------- multistep
+    def _multistep_loss(self, params, noise):
+        """multistep1/2 and multistep_reg: the forward-replication loss
+        mean_i E(Y_i + Σ_{j≥i} toAdd_j − g(X_N))², toAdd_i = −f(Y_i)·dt
+        [+ Γ_i − comp_i + Z_i·dW_i]."""
+        model, dt = self.model, self.model.dt
+        dw, j, mc = noise[0], noise[1], self._mc_rows(noise)
+        heads = self.with_heads
+        tables = (self._hoist_tables(params, noise)
+                  if heads and self.hoist else None)
+        x = model.init_x(dw.shape[1], dw.device)
+        ys, adds = [], []
+        for i in range(model.N):
+            out = self._uz(params, i, x)
+            y = out[..., 0]
+            to_add = -dt * model.f(y)
+            if heads:
+                gam, comp = self._heads_gamma_comp(params, tables, i, x, j[i],
+                                                   mc[i])
+                to_add = to_add + gam - comp
+                to_add = to_add + out[..., 1] * dw[i]
+            x = model.step(i, x, dw[i], j[i], y,
+                           price=self._step_price(tables, i, x))
+            ys.append(y)
+            adds.append(to_add)
+        fwd = torch.stack(ys) + _suffix_sum(torch.stack(adds))     # (N, B)
+        # a mean over steps, as the reference's reduce_sum wraps an
+        # already-scalar double mean
+        return torch.mean(torch.square(fwd - model.payoff(x)[None, :]))
+
+    # -------------------------------------------------------------- sumlocal
+    def _sumlocal_heads(self, params, tables, i, x, j, mc_nodes):
+        """(Y, Z, Γ, compensator) of the sumlocal schemes at (i, x, j); Z, Γ
+        and the compensator are None for the regression."""
+        out = self._uz(params, i, x)
+        if not self.with_heads:
+            return out[..., 0], None, None, None
+        gam, comp = self._heads_gamma_comp(params, tables, i, x, j, mc_nodes)
+        return out[..., 0], out[..., 1], gam, comp
+
+    def _sumlocal_loss(self, params, noise):
+        """sumlocal1/2 and sumlocal_reg: the one-step residual loss
+        Σ_i E(Y_{i+1} − Y_i + toAdd_i)², toAdd_i = f(Y_i)·dt
+        [− Γ_i + comp_i − Z_i·dW_i], on N + 1 rows of noise.
+
+        Row N feeds the heads at (t = 0, X_0) before the loop, un-hoisted;
+        its dW is never read.  Step i moves X with the jump carried from the
+        row before (row N at i = 0), then evaluates the heads at X_{i+1}
+        with time feature i and the jump of row i, which the next step
+        carries.  The heads of the last step are evaluated and unused: Y_N
+        is the payoff."""
+        model, n, dt = self.model, self.model.N, self.model.dt
+        dw, j_all, mc = noise[0], noise[1], self._mc_rows(noise)
+        heads = self.with_heads
+        x = model.init_x(dw.shape[1], dw.device)
+        j = j_all[n]
+        y_prev, z_prev, gam_prev, comp_prev = self._sumlocal_heads(
+            params, None, 0, x, j, mc[n])
+        tables = (self._hoist_tables(params, noise, shift_next=True)
+                  if heads and self.hoist else None)
+        errs = []
+        for i in range(n):
+            to_add = dt * model.f(y_prev)
+            if heads:
+                to_add = to_add - gam_prev + comp_prev - z_prev * dw[i]
+            # the forward drift's A(i, X_i) is priced un-hoisted: the
+            # shift_next tables span the x_{i+1} marginals
+            x = model.step(i, x, dw[i], j, y_prev)
+            y_net, z_prev, gam_prev, comp_prev = self._sumlocal_heads(
+                params, tables, i, x, j_all[i], mc[i])
+            y_next = model.payoff(x) if i == n - 1 else y_net
+            errs.append(torch.mean(torch.square(y_next - y_prev + to_add)))
+            j, y_prev = j_all[i], y_next
+        return torch.sum(torch.stack(errs))
+
+    # ------------------------------------------------------------------ loss
     def build_loss_from_noise(self, batch: int) -> Callable:
         """``loss(params, noise)`` on given noise tensors — (dw, j), or (dw,
-        j, mc_nodes) with the Monte-Carlo compensator — so that the same
-        noise can drive this solver and another implementation."""
-        model = self.model
-        roll = self._rollout() if self.hoist else None
+        j, mc_nodes) with the Monte-Carlo compensator, each of
+        ``noise_rows`` rows — so that the same noise can drive this solver
+        and another implementation."""
+        roll = (self._rollout() if self.hoist and self.scheme == "global"
+                else None)
 
         def loss(params, noise):
             self._check_noise(noise, batch)
-            if self.hoist:
-                x_n, y_n = roll(params["gam"], params["uz"]["y0"],
-                                self._hoist_tables(params, noise), noise[0],
-                                noise[1])
-            else:
-                x_n, y_n = self._rollout_direct(params, noise)
-            return torch.mean(torch.square(y_n - model.payoff(x_n)))
+            if self.scheme == "global":
+                return self._global_loss(params, noise, roll)
+            if self.scheme.startswith("multistep"):
+                return self._multistep_loss(params, noise)
+            return self._sumlocal_loss(params, noise)
 
         return loss
 
@@ -427,11 +632,113 @@ class PricingSolver:
         from_noise = self.build_loss_from_noise(batch)
 
         def loss(params, generator):
-            return from_noise(params, self._prenoise(generator, batch))
+            return from_noise(params, self._prenoise(generator, batch,
+                                                     self.noise_rows))
 
         return loss
 
     # ------------------------------------------------------------- evaluation
     def y0_estimate(self, params: Params) -> torch.Tensor:
-        """Current Y0: the trainable scalar of the global scheme."""
-        return params["uz"]["y0"]
+        """Current Y0: the trainable scalar of the global scheme, else the
+        U-net's U(0, x0) (the reference's mean over identical inputs
+        X_0 = x0 equals the single evaluation)."""
+        if self.scheme == "global":
+            return params["uz"]["y0"]
+        x = self.model.init_x(1, params["uz"]["W"][0].device)
+        return self._uz(params, 0, x)[0, 0]
+
+    def warm_start_y0(self, params: Params, generator: torch.Generator,
+                      batch: int = 65536) -> Params:
+        """Params with the trainable scalar y0 set to the discounted-payoff
+        Monte-Carlo estimate e^{-rT} E[g(X_N)] under the uncoupled dynamics
+        (coupling zeroed, Y fed as 0), drawn on ``generator``: an
+        oracle-free start that keeps Adam out of the spurious negative-Y0
+        basin a unit-normal draw of y0 can land in.  Only the global scheme
+        has a y0."""
+        if "y0" not in params.get("uz", {}):
+            raise ValueError(
+                f"scheme {self.scheme!r} has no trainable y0 to warm-start")
+        from deepfbsdejsolvers_torch.models.merton import abs_coupling
+
+        model = dataclasses.replace(self.model, coupling=abs_coupling(0.0))
+        dev = generator.device
+        with torch.no_grad():
+            x = model.init_x(batch, dev)
+            zero = torch.zeros_like(x)
+            for i in range(model.N):
+                dw = math.sqrt(model.dt) * torch.randn(
+                    (batch,), generator=generator, device=dev)
+                j = model.sample_jumps(generator, (batch,))
+                # the coupling 0·|Y − A| drops A, so no path is priced
+                x = model.step(i, x, dw, j, zero, price=zero)
+            y0 = math.exp(-model.r * model.T) * torch.mean(model.payoff(x))
+        old = params["uz"]["y0"]
+        out = dict(params)
+        out["uz"] = dict(params["uz"], y0=y0.to(old.device, old.dtype))
+        return out
+
+    def hoist_clamp_fractions(self, params: Params,
+                              generator: torch.Generator,
+                              batch: int = 8192) -> torch.Tensor:
+        """Per-step fraction (N,) of coupled paths outside the hoisted
+        intervals [lo_i, hi_i], on a fresh draw of the loss's noise: the
+        check of the ``hoist_pad_frac`` policy (see
+        ``clamp_fractions_from_noise``)."""
+        return self.clamp_fractions_from_noise(
+            params, self._prenoise(generator, batch, self.noise_rows))
+
+    def clamp_fractions_from_noise(self, params: Params,
+                                   noise) -> torch.Tensor:
+        """The clamp fractions on given noise.  The intervals come from the
+        uncoupled X marginals; a coupled path outside its step's interval
+        clamps to the boundary in the table evaluators.  This rolls the
+        coupled forward as the scheme's loss does (global: the BSDE-carried
+        Y through the hoisted heads; multistep: the head's Y; sumlocal: the
+        head's Y, counting the step-(i+1) state against the shift_next
+        tables)."""
+        if not self.hoist:
+            raise ValueError("hoist_clamp_fractions needs hoist=True")
+        model, n, dt = self.model, self.model.N, self.model.dt
+        dw, j_all = noise[0], noise[1]
+        sumlocal = self.scheme.startswith("sumlocal")
+        with torch.no_grad():
+            tables = self._hoist_tables(params, noise, shift_next=sumlocal)
+            out_frac = lambda i, x: torch.mean(
+                ((x < tables["lo"][i]) | (x > tables["hi"][i])).to(x.dtype))
+            x = model.init_x(dw.shape[1], dw.device)
+            fracs = []
+            if sumlocal:
+                j, y = j_all[n], self._uz(params, 0, x)[..., 0]
+                for i in range(n):
+                    x = model.step(i, x, dw[i], j, y)
+                    fracs.append(out_frac(i, x))
+                    y = (model.payoff(x) if i == n - 1
+                         else self._uz(params, i, x)[..., 0])
+                    j = j_all[i]
+                return torch.stack(fracs)
+            y = (params["uz"]["y0"] if self.scheme == "global"
+                 else torch.zeros(())) * torch.ones_like(x)
+            for i in range(n):
+                fracs.append(out_frac(i, x))
+                if self.scheme == "global":
+                    gam, comp = self._heads_gamma_comp(params, tables, i, x,
+                                                       j_all[i], None)
+                    y = y - dt * model.f(y) + gam - comp
+                    y = y + table_eval(tables["zc"][i], x, tables["lo"][i],
+                                       tables["hi"][i]) * dw[i]
+                else:
+                    y = self._uz(params, i, x)[..., 0]
+                x = model.step(i, x, dw[i], j_all[i], y,
+                               price=self._step_price(tables, i, x))
+            return torch.stack(fracs)
+
+    def simulate_paths(self, params: Params, generator: torch.Generator,
+                       batch: int):
+        """(X, Y) trajectories (N + 1, B) of the global scheme under the
+        trained policy, un-hoisted, on a fresh draw of noise."""
+        if self.scheme != "global":
+            raise ValueError("simulate_paths needs the global scheme (an "
+                             "explicit Y)")
+        with torch.no_grad():
+            return self._rollout_direct(
+                params, self._prenoise(generator, batch), trace=True)

@@ -1,15 +1,18 @@
 """Training loop: Adam over ``num_epoch_ext`` outer epochs of ``num_epoch``
 inner gradient steps, with a validation loss and the Y0 read-out once per
 outer epoch.  Adam uses eps=1e-7 (the Keras default the reference trains
-with).  The noise of outer epoch k comes from generators seeded by
-(seed, k), so a run restarted at epoch k replays the same noise stream.
+with).  The learning rate is a float or a schedule of the update count
+(``cosine_decay_schedule``, the gates' schedule).  The noise of outer
+epoch k comes from generators seeded by (seed, k), so a run restarted at
+epoch k replays the same noise stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -37,30 +40,60 @@ def make_generator(device, seed: int, *path: int) -> torch.Generator:
     return g
 
 
-def make_adam(params, lrate: float) -> torch.optim.Adam:
-    return torch.optim.Adam(param_leaves(params), lr=lrate, eps=1e-7)
+LearningRate = Union[float, Callable[[int], float]]
+
+
+def cosine_decay_schedule(peak: float, steps: int) -> Callable[[int], float]:
+    """The learning rate of update ``count`` (0 for the first update):
+    peak·(1 + cos(π·min(count, steps)/steps))/2, optax's
+    ``cosine_decay_schedule(peak, steps)`` with alpha 0."""
+    if steps <= 0:
+        raise ValueError(f"steps must be positive, got {steps}")
+
+    def lrate(count: int) -> float:
+        return peak * 0.5 * (1.0 + math.cos(math.pi * min(count, steps)
+                                            / steps))
+
+    return lrate
+
+
+def make_adam(params, lrate: LearningRate) -> torch.optim.Adam:
+    """Adam with eps=1e-7 at ``lrate``, or at its value for the first
+    update when it is a schedule (``make_step`` sets it per update)."""
+    lr = lrate(0) if callable(lrate) else lrate
+    return torch.optim.Adam(param_leaves(params), lr=lr, eps=1e-7)
 
 
 def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
-              params) -> Callable:
-    """``step(generator) -> loss``: one gradient step on a fresh draw."""
+              params, lrate: Optional[Callable[[int], float]] = None
+              ) -> Callable:
+    """``step(generator) -> loss``: one gradient step on a fresh draw.  With
+    a schedule ``lrate``, the k-th call's update runs at ``lrate(k)``."""
+    count = 0
 
     def step(generator):
+        nonlocal count
+        if lrate is not None:
+            for group in optimizer.param_groups:
+                group["lr"] = lrate(count)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, generator)
         loss.backward()
         optimizer.step()
+        count += 1
         return loss.detach()
 
     return step
 
 
-def fit(loss_fn: Callable, params, seed: int, lrate: float, num_epoch: int,
-        num_epoch_ext: int, val_loss_fn: Optional[Callable] = None,
+def fit(loss_fn: Callable, params, seed: int, lrate: LearningRate,
+        num_epoch: int, num_epoch_ext: int,
+        val_loss_fn: Optional[Callable] = None,
         y0_fn: Optional[Callable] = None, verbose: bool = True
         ) -> TrainResult:
     """Train ``params`` (leaf tensors, updated in place) for num_epoch_ext
-    outer epochs of num_epoch Adam steps.
+    outer epochs of num_epoch Adam steps, at the learning rate ``lrate``:
+    a float, or a function of the update count over the whole fit.
 
     ``val_loss_fn(params, generator)`` is evaluated without gradients once
     per outer epoch; ``y0_fn(params)`` extracts the current Y0.  Epoch k
@@ -70,7 +103,8 @@ def fit(loss_fn: Callable, params, seed: int, lrate: float, num_epoch: int,
     for t in leaves:
         t.requires_grad_(True)
     device = leaves[0].device
-    step = make_step(loss_fn, make_adam(params, lrate), params)
+    step = make_step(loss_fn, make_adam(params, lrate), params,
+                     lrate if callable(lrate) else None)
     y0_hist: List[float] = []
     loss_hist: List[float] = []
     dur_hist: List[float] = []

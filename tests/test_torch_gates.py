@@ -1,0 +1,204 @@
+"""CPU tier of the port's accuracy-gate runner
+(``deepfbsdejsolvers_torch.experiments.convergence_gates``).
+
+The registry holds the JAX package's ten Merton gate rows with the same
+configuration and budget keys; the first tests hold them, and the smoke
+budgets below, against the JAX gate script and its smoke tier
+(tests/test_gates_smoke.py).  Then every row trains end to end through
+``run_entry`` at that tier's budget (300 cosine-decayed Adam steps, batch
+256, one seed) and must read out finite and within 5e-2 of the oracle: a
+broken path, a diverging loss or a mis-built table fails, while the real
+1e-3 gates run on the card.  Each row trains in the file that
+``GATE_FILES`` names (that file's ``GATES``), so that no file trains for
+long on one worker.
+
+Three rows train for fewer steps than that tier gives them, because the
+port's eager loop on the CPU costs ~4.7 ms per time step at batch 256.  Two
+are warm-started: ``merton_coupled_direct`` (N = 1600, ~7.5 s a step) 8
+steps where the JAX tier takes 60, and ``merton_global_extrapolated`` (two
+fits per seed) 150 where it takes 300.  Both start Y0 at the Monte-Carlo
+estimate of the price, so what they check is that training does not
+diverge, as in the JAX tier.  ``merton_direct`` (multistep1 sweeping its
+U-net over 49 nodes at every path, ~0.4 s a step on one CPU thread) trains
+150 steps where the JAX tier takes 300: on one CPU thread its read-out
+sat 1.85e-2 from the oracle after 150 steps and 2.05e-2 after 300, so
+the 5e-2 check keeps its margin.
+"""
+
+import dataclasses
+import functools
+import importlib
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from deepfbsdejsolvers_torch.experiments import convergence_gates as cg
+from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
+from test_gates_smoke import _BUDGET as JAX_BUDGET
+from test_gates_smoke import _load_cg, _per_gate
+
+pytestmark = pytest.mark.gates
+
+BUDGET = dict(steps=300, seeds=1, batch=256, tail=4)
+PER_GATE = {
+    "merton_coupled_direct": dict(steps=8),
+    "merton_global_extrapolated": dict(steps=150),
+    "merton_direct": dict(steps=150),
+    "merton_speed_mc": dict(
+        steps=60, compensator=CompensatorSpec(kind="mc", n_mc=500,
+                                              x_interp="chebyshev",
+                                              n_cheb=64)),
+}
+# the rows trained for fewer steps than in the JAX tier (module docstring)
+TRIMMED = ("merton_coupled_direct", "merton_global_extrapolated",
+           "merton_direct")
+
+GATE_FILES = {
+    "merton_speed": "test_torch_gates.py",
+    "merton_speed_fused": "test_torch_gates_fused.py",
+    "merton_speed_mc": "test_torch_gates_mc.py",
+    "merton_multistep_diag": "test_torch_gates_multistep.py",
+    "merton_coupled_diag": "test_torch_gates_coupled.py",
+    "merton_coupled_direct": "test_torch_gates_fine.py",
+    "merton_direct": "test_torch_gates_direct.py",
+    "merton_cheb": "test_torch_gates_cheb.py",
+    "merton_global": "test_torch_gates_global.py",
+    "merton_global_extrapolated": "test_torch_gates_extrapolated.py",
+}
+GATES = ["merton_speed"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Train on one CPU thread: the eager loop's tensors are small, so more
+    threads only spin, and the tier runs a process on each core."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@functools.lru_cache(maxsize=None)
+def port_registry():
+    return cg.build_registry()
+
+
+def check_gate(name: str) -> None:
+    """Train the row ``name`` on the CPU at its smoke budget."""
+    record = cg.run_entry(name, port_registry()[name], device="cpu",
+                          **{**BUDGET, **PER_GATE.get(name, {})})
+    err = record["abs_error"]
+    assert record["device"] == "cpu" and record["seconds"] > 0
+    assert np.isfinite(err), (name, record)
+    assert err < 5e-2, (name, record)
+
+
+@pytest.fixture(scope="module")
+def jax_cg():
+    return _load_cg()
+
+
+def _fields(obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _assert_same_model(ours, theirs):
+    """Every field the port's model has equals the JAX model's; the fields
+    only the JAX model has (its "table" price mode's) sit at their
+    defaults; the couplings agree on a grid."""
+    mine, jax_side = _fields(ours), _fields(theirs)
+    extra = set(jax_side) - set(mine)
+    assert extra == {"table_points", "table_log_m_max"}, extra
+    for name in extra:
+        default = next(f.default for f in dataclasses.fields(theirs)
+                       if f.name == name)
+        assert jax_side[name] == default, name
+    u = np.linspace(-2.0, 2.0, 9).astype(np.float32)
+    np.testing.assert_allclose(
+        np.asarray(mine.pop("coupling")(torch.tensor(u))),
+        np.asarray(jax_side.pop("coupling")(u)), rtol=1e-6)
+    assert mine == {k: jax_side[k] for k in mine}
+
+
+def _assert_same_args(ours, theirs):
+    assert sorted(ours) == sorted(theirs)
+    for key, want in theirs.items():
+        got = ours[key]
+        if key == "model":
+            _assert_same_model(got, want)
+        elif key == "compensator":
+            assert _fields(got) == _fields(want)
+        elif key == "oracle":
+            assert got == pytest.approx(want, rel=1e-6)
+        elif key == "make_model":
+            for a in (0.05, 0.1):
+                _assert_same_model(got(a), want(a))
+        else:
+            assert got == want, key
+
+
+def test_merton_rows_match_the_jax_registry(jax_cg):
+    theirs = {k: v for k, v in jax_cg.build_registry().items()
+              if k.startswith("merton")}
+    ours = port_registry()
+    assert sorted(ours) == sorted(theirs) == sorted(GATE_FILES)
+    for name, entry in theirs.items():
+        assert ours[name]["kind"] == entry["kind"], name
+        _assert_same_args(ours[name]["args"], entry["args"])
+    assert ours["merton_speed"]["args"]["oracle"] == pytest.approx(
+        0.271457, abs=1e-6)
+
+
+def test_smoke_budgets_follow_the_jax_tier(jax_cg):
+    assert BUDGET == JAX_BUDGET
+    theirs = _per_gate(jax_cg)
+    for name in GATE_FILES:
+        ours, want = PER_GATE.get(name, {}), theirs.get(name, {})
+        if name in TRIMMED:
+            assert ours["steps"] < want.get("steps", BUDGET["steps"])
+            continue
+        assert sorted(ours) == sorted(want), name
+        for key, value in want.items():
+            got = ours[key]
+            if key == "compensator":
+                assert _fields(got) == _fields(value)
+            else:
+                assert got == value, (name, key)
+
+
+def test_main_refuses_cuda_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    assert cg.main(["merton_speed"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cg.main(["no_such_gate", "--device", "cpu"])
+
+
+def test_main_trains_only_the_seeds_named(monkeypatch, capsys):
+    runs = []
+
+    def fit_y0(solver, seed, *args):
+        runs.append(seed)
+        return 0.271457 + 1e-4 * seed
+
+    monkeypatch.setattr(cg, "_fit_y0", fit_y0)
+    assert cg.main(["merton_speed", "--device", "cpu", "--seed", "2",
+                    "--seed", "0"]) == 0
+    assert runs == [2, 0]
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert record["seeds"] == [2, 0]
+    assert record["y0"] == pytest.approx([0.271657, 0.271457])
+
+
+def test_every_row_trains_in_its_file():
+    for name in GATE_FILES.values():
+        rows = [g for g, f in GATE_FILES.items() if f == name]
+        assert importlib.import_module(name[:-3]).GATES == rows, name
+
+
+@pytest.mark.parametrize("name", GATES)
+def test_gate_config_trains(name):
+    check_gate(name)

@@ -43,7 +43,8 @@ def test_importing_every_module_loads_no_jax():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"), *PKG.rglob("*.cu*"),
                                        REPO / "chip_smoke.py",
-                                       REPO / "kernel_ab.py"]))
+                                       REPO / "kernel_ab.py",
+                                       REPO / "step_probe.py"]))
 def test_no_source_names_jax(path):
     """chip_smoke.py may name the TPU kernels it reports on, never import
     them."""

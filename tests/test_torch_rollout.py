@@ -125,8 +125,18 @@ def test_cuda_request_without_a_card_raises():
                       **HOIST)
 
 
+class _PureJump:
+    """A model of the pure-jump regime (the Variance-Gamma model's, ROADMAP
+    item 10), otherwise the Merton model."""
+
+    regime = "pure_jump"
+
+    def __getattr__(self, name):
+        return getattr(_model(), name)
+
+
 @pytest.mark.parametrize("kw", [
-    dict(scheme="multistep1"),
+    dict(model=_PureJump()),
     dict(comp_axis="comp"),
     dict(compute_dtype="bfloat16"),
     dict(adjoint=True),
@@ -134,9 +144,9 @@ def test_cuda_request_without_a_card_raises():
 ])
 def test_unported_configurations_raise(kw):
     args = dict(HOIST, hidden=(8, 8), device="cpu", **kw)
-    scheme = args.pop("scheme", "global")
+    model = args.pop("model", _model())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PricingSolver(_model(), scheme, **args)
+        PricingSolver(model, "global", **args)
 
 
 def test_b2_blocks_are_capped_independently_of_the_batch():
