@@ -26,7 +26,14 @@ Phases, each fatal on failure:
      (the quadrature at 2^17 + 37) and three (17 nodes at 2^18 + 37, at
      hidden 21 and 8); and hidden 21 with the quadrature at 2^14 + 37
      paths on the node feature f = e^J of multistep2/sumlocal2 (0.13 to
-     7.6 where J spans ±2.03); B4 run twice bit for bit;
+     7.6 where J spans ±2.03);
+   - B3/B4 on the pure-jump regime's two forms over the Variance-Gamma
+     node sets: the Γ net on f = X·J, whose a = W0[x] + J·W0[f] differs
+     per node, and the one-output U-net on (t, X·(1 + J)) of
+     multistep1/sumlocal1, on the 96-node quadrature at 2^14 + 37 and
+     2^17 + 37 paths (hidden 21 and, at 2^14 + 37, 8) and on 5000
+     Monte-Carlo draws at 2^12 + 37 (``VG_SWEEP_CHECKS``); B4 run twice
+     bit for bit in every sweep check;
 3. drive the training paths through their facades at batch 2^17, every
    kernel's launch counter set to 0 just before a path and read just
    after; each kernel must have launched exactly the times the code
@@ -42,10 +49,20 @@ Phases, each fatal on failure:
      2 steps each, with ``sweep_impl="pallas"`` where the scheme takes it
      (multistep2, sumlocal2) and "xla" elsewhere: finite losses, and the
      launches of ``SCHEMES``;
+   - the Variance-Gamma parity path (``SolverGlobalFBSDE(make_vg_default(),
+     ..., sweep_impl="pallas")``: exact gamma jumps, the per-path FFT
+     price, the 96-node quadrature swept at every path on X·J), 2 × 10
+     steps: B3 at each of the 30 time steps of a step and of an
+     evaluation, B4 at each of a step's; the VG speed path (collocated
+     price, icdf jumps, hoisted piecewise tables), 2 × 10 steps and no
+     kernel; and the six other schemes on the VG model, 2 × 2 steps, with
+     the launches of ``VG_SCHEMES`` (multistep1/2 30 B3 + 30 B4 a step,
+     sumlocal1/2 31 + 30, the regressions none);
 4. time a training step of each path (``cuda_ms``) and profile it, and
    time each kernel and its plain version the same way (``kernel_ms``:
    calls back to back between two CUDA events, after a warm-up) at the
-   path's shapes; B3/B4 also at 5000 Monte-Carlo nodes;
+   path's shapes; B3/B4 also at 5000 Monte-Carlo nodes and on the two
+   pure-jump forms at the 96-node quadrature;
 5. run the accuracy gate ``merton_speed_fused`` through the port's gate
    runner at its registered budget (3 seeds × 2400 steps, batch 8192,
    warm Y0): it must pass (|Y0 − 0.271457| ≤ 1e-3 on every seed) and
@@ -93,6 +110,31 @@ SCHEMES = {
     "sumlocal_reg": ("SumLocalReg", "xla", 0, 0, 0),
     "multistep_reg": ("SumMultiStepReg", "xla", 0, 0, 0),
 }
+# The Variance-Gamma model's steps and its default quadrature's nodes
+# (12 Laguerre × 8 Hermite), and the pure-jump regime's schemes: there
+# multistep1/sumlocal1 sweep a U-net of one output, which B3/B4 take, so
+# the four schemes with a Γ head sweep through the kernels, as above.
+N_VG, N_VG_QUAD = 30, 96
+VG_SCHEMES = {
+    "multistep1": ("SumMultiStep1", "pallas", N_VG, N_VG, N_VG),
+    "multistep2": ("SumMultiStep2", "pallas", N_VG, N_VG, N_VG),
+    "sumlocal1": ("SumLocal1", "pallas", N_VG + 1, N_VG, N_VG + 1),
+    "sumlocal2": ("SumLocal2", "pallas", N_VG + 1, N_VG, N_VG + 1),
+    "sumlocal_reg": ("SumLocalReg", "xla", 0, 0, 0),
+    "multistep_reg": ("SumMultiStepReg", "xla", 0, 0, 0),
+}
+# B3/B4 on the pure-jump forms: (hidden, node set, form, batch), the
+# quadrature at 2^14 + 37 paths and at 2^17 + 37 (B4's 512 blocks walk two
+# tiles), 5000 Monte-Carlo draws at 2^12 + 37, and hidden 8
+VG_SWEEP_CHECKS = (
+    (HIDDEN, "quadrature", "x_prop", CHECK_BATCH),
+    (HIDDEN, "quadrature", "two_feature", CHECK_BATCH),
+    (HIDDEN, "mc", "x_prop", 2**12 + 37),
+    (HIDDEN, "quadrature", "x_prop", 2**17 + 37),
+    (HIDDEN, "quadrature", "two_feature", 2**17 + 37),
+    (8, "quadrature", "x_prop", CHECK_BATCH),
+    (8, "quadrature", "two_feature", CHECK_BATCH),
+)
 SCHEME_STEPS, SCHEME_EPOCHS = 2, 2
 GATE = "merton_speed_fused"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
@@ -116,6 +158,20 @@ def speed_config():
         compensator=CompensatorSpec(x_interp="chebyshev", n_cheb=64),
         hoist=True, hoist_interp="piecewise", fused_rollout=True,
         device="cuda")
+
+
+def vg_speed_config():
+    """The Variance-Gamma speed configuration (the JAX package's ``bench.py
+    --model vg`` without its scan chunking): the collocated FFT price, icdf
+    jumps, hoisted piecewise tables.  (model, solver keyword arguments)."""
+    from deepfbsdejsolvers_torch.models.variance_gamma import make_vg_default
+    from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
+
+    model = dataclasses.replace(make_vg_default(jump_sampler="icdf"),
+                                price_eval="chebyshev")
+    return model, dict(
+        compensator=CompensatorSpec(x_interp="chebyshev", n_cheb=64),
+        hoist=True, hoist_interp="piecewise", device="cuda")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -337,22 +393,30 @@ def time_kernels(op, inputs) -> dict:
 
 
 def sweep_inputs(hidden: int, node_set: str, batch: int, tag: int,
-                 n_mc: int = N_MC, exp_feature: bool = False):
-    """One call of the parity path's sweep at step 25: a Γ head with
-    non-zero biases, the node set in rank-1 form (the 49-node quadrature,
-    or ``n_mc`` Monte-Carlo draws with uniform weights) on the node feature
-    J, or with ``exp_feature`` e^J (multistep2/sumlocal2), spots drawn
-    lognormally around x0, and a cotangent for B4.  Returns ((x, a, c, W1,
-    b1, v), g), detached and contiguous on the card."""
+                 n_mc: int = N_MC, form: str = "j"):
+    """One call of a parity path's sweep at step 25: a head with non-zero
+    biases, the node set in rank-1 form (the model's quadrature, or
+    ``n_mc`` Monte-Carlo draws with uniform weights), spots drawn
+    lognormally around x0, and a cotangent for B4.  ``form`` names the
+    head and its node feature: on the Merton model's 49 nodes the Γ net on
+    J ("j", global) or on e^J ("exp", multistep2/sumlocal2); on the
+    Variance-Gamma model's 96 nodes the Γ net on X·J ("x_prop", a per-node
+    a) or the one-output U-net on (t, X·(1 + J)) ("two_feature",
+    multistep1/sumlocal1).  Returns ((x, a, c, W1, b1, v), g), detached and
+    contiguous on the card."""
     from deepfbsdejsolvers_torch.models.merton import make_merton_default
+    from deepfbsdejsolvers_torch.models.variance_gamma import make_vg_default
     from deepfbsdejsolvers_torch.nets.mlp import MLPSpec, init_mlp
     from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
-    from deepfbsdejsolvers_torch.ops.sweep import rank1_three_feature
+    from deepfbsdejsolvers_torch.ops.sweep import (
+        rank1_three_feature, rank1_two_feature)
     from deepfbsdejsolvers_torch.solvers.train import make_generator
 
-    model = make_merton_default()
+    vg = form in ("x_prop", "two_feature")
+    model = make_vg_default() if vg else make_merton_default()
     gcpu = make_generator("cpu", SEED, 6, tag)
-    head = init_mlp(gcpu, MLPSpec(3, (hidden, hidden), 1), "cuda")
+    n_in = 2 if form == "two_feature" else 3
+    head = init_mlp(gcpu, MLPSpec(n_in, (hidden, hidden), 1), "cuda")
     head["b"] = [0.1 * torch.randn(b.shape, generator=gcpu).cuda()
                  for b in head["b"]]
     gen = make_generator("cuda", SEED, 7, tag)
@@ -362,10 +426,14 @@ def sweep_inputs(hidden: int, node_set: str, batch: int, tag: int,
     else:
         nodes, weights = (t.cuda() for t in
                           model.jump_quadrature(CompensatorSpec()))
-    feat = torch.exp(nodes) if exp_feature else nodes
+    t25 = torch.tensor(25.0, device="cuda")
     with torch.no_grad():
-        a, c, v, _ = rank1_three_feature(
-            head, torch.tensor(25.0, device="cuda"), feat, False, weights)
+        if form == "two_feature":
+            a, c, v, _ = rank1_two_feature(head, t25, 1.0 + nodes, weights)
+        else:
+            feat = torch.exp(nodes) if form == "exp" else nodes
+            a, c, v, _ = rank1_three_feature(head, t25, feat,
+                                             form == "x_prop", weights)
     x = model.x0 * torch.exp(0.3 * torch.randn(batch, generator=gen,
                                                device="cuda"))
     g = torch.randn(batch, generator=gen, device="cuda") / batch
@@ -528,9 +596,10 @@ def time_step(trainer, tag: int, label: str, reps: int = 5):
     step = make_step(loss_fn, make_adam(params, 4e-4), params)
     gen = make_generator("cuda", SEED, tag)
     step_ms = cuda_ms(lambda: step(gen), reps=reps)
-    rate = TRAIN_BATCH * N_STEPS / (step_ms * 1e-3)
+    n = trainer.core.model.N
+    rate = TRAIN_BATCH * n / (step_ms * 1e-3)
     print(f"{label} train step: {step_ms:.3f} ms at batch {TRAIN_BATCH}, N "
-          f"{N_STEPS} ({rate:.4g} paths·steps/s)")
+          f"{n} ({rate:.4g} paths·steps/s)")
     profile_steps(step, gen, step_ms, steps=2)
     return step_ms, rate
 
@@ -545,6 +614,7 @@ def main() -> int:
     from deepfbsdejsolvers_torch.experiments import (
         convergence_gates as gates)
     from deepfbsdejsolvers_torch.models.merton import make_merton_default
+    from deepfbsdejsolvers_torch.models.variance_gamma import make_vg_default
     from deepfbsdejsolvers_torch.ops import _build
     from deepfbsdejsolvers_torch.ops import rollout as R
     from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
@@ -573,6 +643,7 @@ def main() -> int:
     # width the kernels are built for at a small size, then both where B2's
     # blocks walk two and three tiles
     model, kw = speed_config()
+    vg_check = {}
     walk_batch = (5 * R.b2_blocks(2**30) // 2) * 128 - 91
     for hidden, n, batch in ((HIDDEN, N_STEPS, CHECK_BATCH), (8, 7, 1000),
                              (HIDDEN, N_STEPS, walk_batch),
@@ -603,7 +674,18 @@ def main() -> int:
     print(f"sweep check at H={HIDDEN}, quadrature nodes on the feature "
           f"e^J, B={CHECK_BATCH}:")
     check_sweep(*sweep_inputs(HIDDEN, "quadrature", CHECK_BATCH, 11,
-                              exp_feature=True))
+                              form="exp"))
+    # the pure-jump regime's forms: a per-node a (the Γ net on X·J) and the
+    # one-output U-net on (t, X·(1 + J)), on the Variance-Gamma node sets
+    for tag, (hidden, node_set, form, batch) in enumerate(VG_SWEEP_CHECKS,
+                                                          start=30):
+        nodes = f"{N_MC} MC" if node_set == "mc" else f"{N_VG_QUAD}-node"
+        print(f"sweep check at H={hidden}, VG {nodes} nodes, form {form}, "
+              f"B={batch} (B4: {S.b4_blocks(batch)} blocks walk "
+              f"{-(-batch // 256)} tiles):")
+        result = check_sweep(*sweep_inputs(hidden, node_set, batch, tag,
+                                           form=form))
+        vg_check.setdefault(form, result)
     op = R.FusedRolloutOp(model, HIDDEN, n_pieces=PIECES)
 
     # 3. the main paths: training through the facade
@@ -628,6 +710,25 @@ def main() -> int:
                  device="cuda"),
             {"B3": b3, "B4": b4}, {"B3": b3_eval}, counters, facade=facade,
             steps=SCHEME_STEPS, epochs=SCHEME_EPOCHS)
+    # the pure-jump regime: the Variance-Gamma model's parity path (exact
+    # gamma jumps, the per-path FFT price, the direct 96-node sweep through
+    # B3/B4 on X·J), its speed path (no kernel) and the six other schemes
+    vg_model = make_vg_default()
+    print("VG parity path (direct 96-node sweep, sweep_impl='pallas'):")
+    vg_parity, by_path["vg_parity"] = train_path(
+        dict(math_model=vg_model, sweep_impl="pallas", device="cuda"),
+        {"B3": N_VG, "B4": N_VG}, {"B3": N_VG}, counters)
+    vg_speed_model, vg_speed_kw = vg_speed_config()
+    print("VG speed path (hoisted piecewise tables, no kernel):")
+    vg_speed, by_path["vg_speed"] = train_path(
+        dict(vg_speed_kw, math_model=vg_speed_model), {}, {}, counters)
+    vg_schemes = {}
+    for scheme, (facade, impl, b3, b4, b3_eval) in VG_SCHEMES.items():
+        print(f"VG {scheme} (parity configuration, sweep_impl={impl!r}):")
+        vg_schemes[scheme], by_path[f"vg_{scheme}"] = train_path(
+            dict(math_model=vg_model, sweep_impl=impl, device="cuda"),
+            {"B3": b3, "B4": b4}, {"B3": b3_eval}, counters, facade=facade,
+            steps=SCHEME_STEPS, epochs=SCHEME_EPOCHS)
 
     # 4. timings at the paths' shapes
     step_ms, rate = time_step(trainer, 4, "speed")
@@ -644,6 +745,17 @@ def main() -> int:
         del args, g
     scheme_ms = {scheme: time_step(trainer, 20 + k, scheme, reps=3)[0]
                  for k, (scheme, trainer) in enumerate(schemes.items())}
+    vg_ms = {"parity": time_step(vg_parity, 40, "VG parity")[0],
+             "speed": time_step(vg_speed, 41, "VG speed")[0]}
+    vg_ms.update({scheme: time_step(trainer, 42 + k, f"VG {scheme}",
+                                    reps=3)[0]
+                  for k, (scheme, trainer) in enumerate(vg_schemes.items())})
+    times_vg = {}
+    for form in ("x_prop", "two_feature"):
+        args, g = sweep_inputs(HIDDEN, "quadrature", TRAIN_BATCH, 12,
+                               form=form)
+        times_vg[form] = time_sweep(args, g)
+        del args, g
 
     # 5. one accuracy gate through the port's runner
     print(f"gate {GATE} (3 seeds × 2400 steps, batch 8192):")
@@ -700,13 +812,30 @@ def main() -> int:
             print(f"{k} at M={N_MC}: {times_mc[k]['ms']:.3f} ms (plain "
                   f"{times_mc[k]['plain_ms']:.1f} ms, bound {mc_ms:.3f} ms "
                   f"by {mc_by})")
+        if k in ("B3", "B4"):
+            vg_ms_k, vg_by = bound(k, N_VG_QUAD, TRAIN_BATCH, HIDDEN, PIECES)
+            entry["vg_quadrature96"] = {
+                form: {"ms": times_vg[form][k]["ms"],
+                       "plain_ms": times_vg[form][k]["plain_ms"],
+                       "max_abs_err": vg_check[form][k]["max_abs_err"],
+                       "rel_err": vg_check[form][k]["rel_err"]}
+                for form in times_vg}
+            entry["vg_quadrature96"].update(
+                bound_ms=vg_ms_k, bound_by=vg_by,
+                shape={"M": N_VG_QUAD, "B": TRAIN_BATCH, "H": HIDDEN})
+            for form in times_vg:
+                print(f"{k} at M={N_VG_QUAD} ({form}): "
+                      f"{times_vg[form][k]['ms']:.4f} ms (plain "
+                      f"{times_vg[form][k]['plain_ms']:.3f} ms, bound "
+                      f"{vg_ms_k:.4f} ms by {vg_by})")
         record.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": record, "train_step_ms": step_ms,
                       "paths_steps_per_s": rate,
                       "parity_train_step_ms": pstep_ms,
                       "parity_paths_steps_per_s": prate,
-                      "scheme_train_step_ms": scheme_ms, "gate": gate}))
+                      "scheme_train_step_ms": scheme_ms,
+                      "vg_train_step_ms": vg_ms, "gate": gate}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

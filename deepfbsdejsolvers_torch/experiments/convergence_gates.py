@@ -1,16 +1,18 @@
-"""The Merton accuracy gates of the port, on the card.
+"""The pricing accuracy gates of the port, on the card.
 
     python -m deepfbsdejsolvers_torch.experiments.convergence_gates \\
-        merton_speed merton_speed_fused [--device cuda]
+        merton_speed vg_speed [--device cuda]
 
 Each gate trains a solver on its registered budget (Adam under a
 cosine-decayed learning rate, peak ``peak_lr`` over ``steps`` updates,
 batch 8192, ``seeds`` independent runs) and reports |Y0 − oracle| against
-the closed-form Merton price A(0, x0) = 0.271457; a gate passes when the
+the model's own price A(0, x0): the closed-form Merton price 0.271457, or
+the Variance-Gamma Carr-Madan FFT price 0.133141.  A gate passes when the
 largest error over its seeds is at most 1e-3.  The registry
 (``build_registry``) holds the JAX package's gate script's ten Merton rows
-with the same configuration and budget keys, so a CPU test can train every
-row at a small budget and check that the rows have not drifted.
+and five Variance-Gamma rows with the same configuration and budget keys,
+so a CPU test can train every row at a small budget and check that the
+rows have not drifted.
 
 Seeds are taken as in that script: the nets from ``seed``, the warm start
 of Y0 from 9000 + seed, the training noise from 1 + 100·seed, each through
@@ -19,8 +21,8 @@ the per-seed numbers differ from the JAX package's; the 1e-3 bar is what
 carries over.  Each gate prints one JSON record, the JAX script's keys plus
 the seeds it trained, the device it ran on and its seconds.  ``--seed``
 trains only the seeds named, so that a gate too long for one run can be
-run a seed at a time.  The Variance-Gamma and MFG rows wait
-for their models (ROADMAP Queue 1, items 10 and 11).
+run a seed at a time.  The MFG rows wait for their model (ROADMAP
+Queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from deepfbsdejsolvers_torch.models.merton import make_merton_default
+from deepfbsdejsolvers_torch.models.variance_gamma import make_vg_default
 from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
 from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
 from deepfbsdejsolvers_torch.solvers.train import (
@@ -178,6 +181,34 @@ def build_registry():
     g["merton_global"] = dict(model=make_merton_default(jump_sampler="icdf"),
                               oracle=oracle, scheme="global",
                               compensator=cheb64)
+    # the Variance-Gamma rows, against the Carr-Madan FFT price
+    vg = make_vg_default()
+    vg_oracle = vg.price_at_origin()
+    # the coupled global scheme at N = 240, hidden (64, 64), 4800 steps,
+    # the time feature rescaled to the N = 30 range
+    g["vg_coupled_direct"] = dict(
+        model=dataclasses.replace(make_vg_default(a_lin=0.1),
+                                  price_eval="chebyshev", N=240),
+        oracle=vg_oracle, scheme="global", seeds=3, peak_lr=3e-3,
+        steps=4800, warm_y0=True, time_scale=30.0 / 240.0,
+        hidden=(64, 64), **speed_kw)
+    # the reference-faithful numerics: exact gamma jumps, the per-path FFT
+    # price, the direct 40-node sweep
+    g["vg_direct"] = dict(
+        model=vg, oracle=vg_oracle, scheme="global",
+        compensator=CompensatorSpec(n_hermite=5, n_laguerre=8))
+    # the speed configuration: collocated price, icdf subordinator, the
+    # hoisted piecewise tables
+    g["vg_speed"] = dict(
+        model=dataclasses.replace(vg, price_eval="chebyshev",
+                                  jump_sampler="icdf"),
+        oracle=vg_oracle, scheme="global", **speed_kw)
+    # the global scheme at half the coupling, warm Y0
+    g["vg_half_coupling"] = dict(
+        model=dataclasses.replace(make_vg_default(a_lin=0.05),
+                                  price_eval="chebyshev"),
+        oracle=vg_oracle, scheme="global", compensator=cheb64, seeds=3,
+        peak_lr=3e-3, steps=2400, warm_y0=True)
     registry = {name: {"kind": "gate", "args": args}
                 for name, args in g.items()}
     registry["merton_global_extrapolated"] = {
@@ -186,6 +217,12 @@ def build_registry():
             make_model=lambda a: make_merton_default(
                 a_lin=a, jump_sampler="icdf", price_mode="chebyshev"),
             oracle=oracle, compensator=cheb64, seeds=3)}
+    registry["vg_global_extrapolated"] = {
+        "kind": "extrapolated",
+        "args": dict(
+            make_model=lambda a: dataclasses.replace(
+                make_vg_default(a_lin=a), price_eval="chebyshev"),
+            oracle=vg_oracle, compensator=cheb64, seeds=3)}
     return registry
 
 

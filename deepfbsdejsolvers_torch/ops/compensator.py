@@ -4,9 +4,10 @@
 sweep by a deterministic quadrature over the known jump law: each model's
 ``jump_quadrature(spec)`` returns (nodes, weights), weights renormalized to
 sum to one so a constant Γ is compensated exactly.  The builders are numpy
-(host) code, the same rules as the JAX package's ``ops/compensator.py``.
-The Monte-Carlo kind and the Variance-Gamma rule are not ported yet
-(ROADMAP Queue 1).
+(host) code, the same rules as the JAX package's ``ops/compensator.py``:
+the compound-Poisson mixture of the Merton model and the gamma-subordinated
+Laguerre × Hermite rule of the Variance-Gamma model.  ``kind="mc"`` sweeps
+fresh draws of the model's own sampler instead (``solvers/pricing.py``).
 """
 
 from __future__ import annotations
@@ -25,8 +26,11 @@ class CompensatorSpec:
     ``n_hermite``     Gauss-Hermite points for the Gaussian inner integral.
     ``x_interp``      "direct" sweeps every path; "chebyshev" sweeps
                       ``n_cheb`` collocation points (ops/chebyshev.py).
+    ``n_laguerre``    generalized Gauss-Laguerre points for a Gamma
+                      subordinator (Variance Gamma).
+    ``kind="mc"``     sweeps ``n_mc`` draws of the jump law per step.
     The remaining fields mirror the JAX spec so that configurations carry
-    across; ``kind="mc"`` is not ported yet.
+    across.
     """
 
     kind: str = "quadrature"
@@ -71,6 +75,26 @@ def compound_poisson_quadrature(lam_dt: float, mu: float, sig: float,
     weights = np.concatenate(weights)
     weights = weights / weights.sum()
     return nodes.astype(np.float32), weights.astype(np.float32)
+
+
+def gamma_subordinated_quadrature(a: float, scale: float, theta: float,
+                                  sig: float, spec: CompensatorSpec):
+    """Quadrature for J = theta·G + sig·sqrt(G)·Z, G ~ Gamma(a, scale),
+    Z ~ N(0, 1) (the Variance-Gamma increment law): with G = scale·s the
+    G-integral is a generalized Gauss-Laguerre rule of alpha = a − 1 (a > 0,
+    weights over Γ(a)), crossed with Gauss-Hermite in Z.  Returns flat
+    float32 (nodes, weights) of n_laguerre·n_hermite points, weights
+    renormalized."""
+    from scipy.special import gammaln, roots_genlaguerre
+
+    s, ws = roots_genlaguerre(spec.n_laguerre, a - 1.0)
+    ws = ws * np.exp(-gammaln(a))
+    z, wz = gauss_hermite(spec.n_hermite)
+    g = scale * s                                                  # (L,)
+    nodes = theta * g[:, None] + sig * np.sqrt(g)[:, None] * z[None, :]
+    weights = (ws[:, None] * wz[None, :]).reshape(-1)
+    weights = weights / weights.sum()
+    return nodes.reshape(-1).astype(np.float32), weights.astype(np.float32)
 
 
 def compensated_mean(values: torch.Tensor,

@@ -1,4 +1,4 @@
-"""The hoisted Merton global rollout: plain loop and fused CUDA kernels.
+"""The hoisted global rollout: plain loop and fused CUDA kernels.
 
 One training step of the hoisted global scheme runs, after the per-step
 tables are built (solvers/pricing.py ``_hoist_tables``), the N-step rollout
@@ -8,11 +8,14 @@ tables are built (solvers/pricing.py ``_hoist_tables``), the N-step rollout
     x ← x·(1 + expm1_acc(drift + σ dW + J)) + aLin·|y − a_i(x)|·dt
 
 where cc_i, pc_i (the price a_i) and zc_i are piecewise Chebyshev tables
-(P pieces × D coefficients) on the step's interval [lo_i, hi_i].
+(P pieces × D coefficients) on the step's interval [lo_i, hi_i].  In the
+pure-jump regime (the Variance-Gamma model) the Γ net's input is
+(t, x, x·J), and there is no Z·dW term, no Z table and no dW in the walk.
 
 ``rollout_plain`` is that loop written step by step in PyTorch and
-differentiated by autograd: the CPU path and the oracle the kernels are held
-against.  ``FusedRolloutOp`` is the operator the solver calls: on a
+differentiated by autograd, in either regime: the CPU path, the eager path
+of the pure-jump model on the card, and the oracle the kernels are held
+against.  The kernels take the Merton form only.  ``FusedRolloutOp`` is the operator the solver calls: on a
 CPU tensor it runs ``rollout_plain``; on a CUDA tensor it runs the whole
 forward as one kernel (B1, ``csrc/rollout_fwd.cu``) and, under autograd, the
 whole backward as one kernel of a bounded number of blocks plus a
@@ -54,27 +57,34 @@ def table_eval(coef: torch.Tensor, x: torch.Tensor, lo: torch.Tensor,
 
 
 def rollout_plain(model, gam_params, y0, tables, dw, j,
-                  time_scale: float = 1.0, activation=torch.tanh):
+                  time_scale: float = 1.0, activation=torch.tanh,
+                  x_prop: bool = False):
     """(x_N, y_N) of the hoisted global rollout, step by step.
 
     ``tables`` holds "lo", "hi" (N,) and "cc", "pc", "zc" per step; dw and j
     are (N, B).  Each step is the body of the global scheme's time loop with
     the model's own callables (f, step), so autograd of this function is the
-    reference gradient."""
-    n, batch = dw.shape
-    x = model.init_x(batch, dw.device)
-    y = y0 * torch.ones((batch,), dtype=torch.float32, device=dw.device)
+    reference gradient.  ``x_prop`` is the pure-jump regime: the Γ net reads
+    (t, x, x·J), and there is no Z table, the model's step takes no dW, and
+    dw is the zero-width (N, 0) placeholder."""
+    n, batch = j.shape
+    x = model.init_x(batch, j.device)
+    y = y0 * torch.ones((batch,), dtype=torch.float32, device=j.device)
     dt = model.dt
     for i in range(n):
         lo, hi = tables["lo"][i], tables["hi"][i]
         t = torch.full_like(x, float(i)) * time_scale
-        gam = mlp_apply(gam_params, torch.stack([t, x, j[i]], -1),
+        feat = x * j[i] if x_prop else j[i]
+        gam = mlp_apply(gam_params, torch.stack([t, x, feat], -1),
                         activation)[..., 0]
         comp = table_eval(tables["cc"][i], x, lo, hi)
         y = y - dt * model.f(y) + gam - comp
+        price = table_eval(tables["pc"][i], x, lo, hi)
+        if x_prop:
+            x = model.step(i, x, j[i], y, price=price)
+            continue
         y = y + table_eval(tables["zc"][i], x, lo, hi) * dw[i]
-        x = model.step(i, x, dw[i], j[i], y,
-                       price=table_eval(tables["pc"][i], x, lo, hi))
+        x = model.step(i, x, dw[i], j[i], y, price=price)
     return x, y
 
 

@@ -1,11 +1,14 @@
 """The compensator sweep with a rank-1 first layer: plain and CUDA kernels.
 
-The un-hoisted global scheme needs, every step, the weighted sweep of the Γ
-head [t, x, f] (3 → H → H → 1, tanh) over a node set {(f_m, w_m)}:
-Σ_m w_m·Γ(t, x_b, f_m) for every path b.  The node feature enters the first
-layer linearly, so at node m that layer is tanh(x_b·a_m + c_m) with
-per-node vectors a_m, c_m (``rank1_three_feature``), and the weights fold
-into the output column, v_m = w_m·W2[:, 0].  What is left,
+The un-hoisted schemes need, every step, the weighted sweep of a Γ head
+over a node set {(J_m, w_m)}: Σ_m w_m·Γ(t, x_b, J_m) for every path b.  The
+head is a Γ net [t, x, f] (3 → H → H → 1, tanh), with the node feature f
+constant per node (J, e^J) or x·J in the pure-jump regime, or the
+pure-jump U-net [t, x·(1 + J)] (2 → H → H → 1).  Either way x enters the
+first layer linearly, so at node m that layer is tanh(x_b·a_m + c_m) with
+per-node vectors a_m, c_m (``rank1_three_feature``,
+``rank1_two_feature``), and the weights fold into the output column,
+v_m = w_m·W2[:, 0].  What is left,
 
     out_b = Σ_m Σ_k v[m,k]·tanh(Σ_h tanh(x_b·a[m,h] + c[m,h])·W1[h,k] + b1[k]),
 
@@ -52,6 +55,20 @@ def rank1_three_feature(head, t, feat, x_prop: bool, weights):
     else:
         c = base_c[None, :] + fcol
         a = w0[1][None, :].expand_as(c)
+    v = weights[:, None] * w2[:, 0][None, :]
+    return a, c, v, weights.sum() * b2[0]
+
+
+def rank1_two_feature(head, t, phi, weights):
+    """(a, c, v, wb2) of a one-output head on [t, x·φ] swept over nodes
+    with factor ``phi`` (M,) and weights (M,) at time feature ``t``: the
+    pure-jump U-net's Γ = U(t, X + X·J), φ = 1 + J.  With W0 (2, H) the
+    first layer's rows (t, x):  a = φ·W0[x],  c = t·W0[t] + b0;  v and wb2
+    as in ``rank1_three_feature``."""
+    w0, b0 = head["W"][0], head["b"][0]
+    w2, b2 = head["W"][2], head["b"][2]
+    a = phi[:, None] * w0[1][None, :]
+    c = (t * w0[0] + b0)[None, :].expand_as(a)
     v = weights[:, None] * w2[:, 0][None, :]
     return a, c, v, weights.sum() * b2[0]
 

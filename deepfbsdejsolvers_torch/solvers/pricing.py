@@ -1,8 +1,10 @@
-"""Deep-BSDE pricing solver: the seven schemes of the jump-diffusion regime.
+"""Deep-BSDE pricing solver: the seven schemes in both noise regimes.
 
-The BSDE is dY = −f(Y) dt + Z dW + Γ dΠ̃, with Γ's compensator E_J[Γ]
-evaluated by a sweep over the jump law.  The schemes differ in the loss and
-in how Γ is parametrized:
+The BSDE is dY = −f(Y) dt [+ Z dW] + Γ dΠ̃, with Γ's compensator E_J[Γ]
+evaluated by a sweep over the jump law.  The jump-diffusion regime (the
+Merton model) carries the Brownian term Z dW; the pure-jump regime (the
+Variance-Gamma model) has no dW and no Z.  The schemes differ in the loss
+and in how Γ is parametrized:
 
 * ``global``: a trainable scalar Y0, the terminal loss E(Y_N − g(X_N))²;
 * ``multistep1/2``: the forward-replication loss
@@ -11,11 +13,16 @@ in how Γ is parametrized:
 * ``sumlocal1/2``: the one-step residual loss Σ_i E(Y_{i+1} − Y_i + toAdd_i)²;
 * ``multistep_reg``/``sumlocal_reg``: the same losses on Y alone.
 
-The "1" schemes take Γ from the 2-output U-net, Γ = U(t, X·e^J)[0]; the "2"
-schemes and ``global`` carry a Γ net on (t, X, f) with f = J for
-``global`` and f = e^J for multistep2/sumlocal2.
+The "1" schemes take Γ from the U-net's first output: Γ = U(t, X·e^J)[0] of
+the 2-output (Y, Z) U-net in the jump-diffusion regime, Γ = U(t, X + X·J) of
+the 1-output U-net in the pure-jump regime.  The "2" schemes and ``global``
+carry a Γ net on (t, X, f): f = J for jump-diffusion ``global``, f = e^J for
+jump-diffusion multistep2/sumlocal2, and f = X·J for all three in the
+pure-jump regime, where the global scheme has no U/Z net and its Γ net
+carries the trainable Y0.
 
-All noise is drawn up front (``_prenoise``): dW and J as (rows, B) tensors,
+All noise is drawn up front (``_prenoise``): dW and J as (rows, B) tensors
+(dW of zero width (rows, 0) in the pure-jump regime),
 and with the Monte-Carlo compensator the (rows, n_mc) node draws of every
 step; the sumlocal schemes draw N + 1 rows, whose last feeds the heads
 evaluated before the loop.  Then the time loop runs either
@@ -23,7 +30,8 @@ evaluated before the loop.  Then the time loop runs either
 * hoisted (``hoist=True``): per-step tables built outside the loop
   (``_hoist_tables``) — each step's spot interval comes from the uncoupled
   log-increments of the drawn noise, and the compensator E_J[Γ], the
-  collocated price A(i, x) and, for ``global``, the Z head are fitted on it.
+  collocated price A(i, x) and, for jump-diffusion ``global``, the Z head
+  are fitted on it.
   The global rollout reads them in ``ops/rollout.py`` (step by step, or with
   ``fused_rollout=True`` as the B1/B2 CUDA kernels); the other schemes read
   them in their own loops.  The sumlocal tables span the x_{i+1} marginal
@@ -32,8 +40,9 @@ evaluated before the loop.  Then the time loop runs either
   step evaluates the heads, A(i, x) by the model's pricer, and the
   compensator by sweeping Γ over the node set for every path
   (``x_interp="direct"``) or at ``n_cheb`` collocation points
-  (``"chebyshev"``).  With ``sweep_impl="pallas"`` the direct sweep of a Γ
-  net runs in the rank-1 form of ``ops/sweep.py``: on the card as the B3/B4
+  (``"chebyshev"``).  With ``sweep_impl="pallas"`` the direct sweep of a
+  one-output head runs in the rank-1 form of ``ops/sweep.py`` (a Γ net's,
+  or the pure-jump U-net's on (t, X·(1 + J))): on the card as the B3/B4
   CUDA kernels.
 
 Reference idiosyncrasies kept on purpose: the time feature fed to the nets
@@ -41,8 +50,8 @@ is the raw step index i (times ``time_scale``), not i·dt; the sumlocal
 schemes evaluate the step-(i+1) state with time feature i and carry the
 jump of the row before into the next forward step.
 
-The pure-jump regime, the 2-D Γ tables, the hand-written adjoint, bf16
-heads and compensator sharding raise NotImplementedError (ROADMAP Queue 1).
+The 2-D Γ tables, the hand-written adjoint, bf16 heads and compensator
+sharding raise NotImplementedError (ROADMAP Queue 1).
 ``scan_chunk`` is accepted and ignored: it shapes the JAX package's XLA
 scan, and the port has no scan.
 """
@@ -67,7 +76,8 @@ from deepfbsdejsolvers_torch.ops.piecewise import pw_fit, pw_nodes
 from deepfbsdejsolvers_torch.ops.rollout import (
     KERNEL_COEFFS, KERNEL_WIDTHS, FusedRolloutOp, merton_form_constants,
     rollout_plain, table_eval)
-from deepfbsdejsolvers_torch.ops.sweep import fused_sweep, rank1_three_feature
+from deepfbsdejsolvers_torch.ops.sweep import (
+    fused_sweep, rank1_three_feature, rank1_two_feature)
 
 PRICING_SCHEMES = ("global", "multistep1", "multistep2", "sumlocal1",
                    "sumlocal2", "sumlocal_reg", "multistep_reg")
@@ -99,8 +109,10 @@ class PricingSolver:
     CUDA tensors runs the CUDA kernels B3 (forward) and B4 (backward) and on
     CPU tensors their plain version.  It reaches the per-step direct sweep
     and the hoisted Monte-Carlo table build, as in the JAX package, for the
-    schemes with a Γ net; multistep1/sumlocal1 sweep their 2-output U-net,
-    which the kernels do not take, and refuse it.
+    schemes with a Γ net, and in the pure-jump regime for multistep1/
+    sumlocal1, whose U-net has one output; in the jump-diffusion regime
+    those two sweep their 2-output U-net, which the kernels do not take,
+    and refuse it.
     ``remat`` runs each step's plain sweep under ``torch.utils.checkpoint``,
     so that only its (B,) output persists until the backward.
     """
@@ -131,9 +143,8 @@ class PricingSolver:
         if self.scheme not in PRICING_SCHEMES:
             raise ValueError(f"scheme must be one of {PRICING_SCHEMES}, got "
                              f"{self.scheme!r}")
-        if self.model.regime != "jump_diffusion":
-            raise NotImplementedError(
-                f"regime {self.model.regime!r} {_NOT_PORTED}, item 10")
+        if self.model.regime not in ("jump_diffusion", "pure_jump"):
+            raise ValueError(f"unknown regime {self.model.regime!r}")
         if self.hoist_interp not in ("piecewise", "clenshaw"):
             raise ValueError("hoist_interp must be 'piecewise' or "
                              f"'clenshaw', got {self.hoist_interp!r}")
@@ -159,7 +170,8 @@ class PricingSolver:
             "hoist_gamma": self.hoist_gamma,
             "adjoint": self.adjoint,
             "hoist_z=False with hoist=True":
-                self.hoist and not self.hoist_z and self.scheme == "global",
+                (self.hoist and not self.hoist_z and self.scheme == "global"
+                 and self.jump_diff),
             "price_mode != 'chebyshev' with hoist=True":
                 self.hoist and not self._price_collocated(),
         }
@@ -176,8 +188,16 @@ class PricingSolver:
         object.__setattr__(self, "_act", get_activation(self.activation))
 
     # ------------------------------------------------------------------ nets
+    @property
+    def jump_diff(self) -> bool:
+        """Whether the model has the Brownian term (else pure jumps)."""
+        return self.model.regime == "jump_diffusion"
+
     def _price_collocated(self) -> bool:
-        return getattr(self.model, "price_mode", None) == "chebyshev"
+        """Whether the model collocates its own pricer (Merton's
+        ``price_mode``, the VG model's ``price_eval``)."""
+        return (getattr(self.model, "price_mode", None) == "chebyshev"
+                or getattr(self.model, "price_eval", None) == "chebyshev")
 
     @property
     def use_gam_net(self) -> bool:
@@ -189,19 +209,30 @@ class PricingSolver:
         """Whether the loss carries Z and Γ (all but the regressions)."""
         return self.scheme not in _REGRESSIONS
 
+    @property
+    def _y0_head(self) -> str:
+        """The net carrying the global scheme's trainable Y0: the UZ net,
+        or the Γ net in the pure-jump regime, which has no UZ net."""
+        return "uz" if self.jump_diff else "gam"
+
     def net_specs(self) -> Dict[str, MLPSpec]:
-        """The nets per scheme: ``global`` a UZ net carrying Y0 with output
-        Z; multistep1/2 and sumlocal1/2 a U-net with outputs (Y, Z); the
-        regressions a U-net with output Y; and a Γ net on (t, X, f) for
-        the schemes that carry one."""
+        """The nets per scheme.  Jump-diffusion: ``global`` a UZ net
+        carrying Y0 with output Z; multistep1/2 and sumlocal1/2 a U-net
+        with outputs (Y, Z); the regressions a U-net with output Y.
+        Pure-jump: no Z anywhere, so every U-net has the one output Y, and
+        ``global`` has no U-net.  A Γ net on (t, X, f) for the schemes that
+        carry one, with Y0 in the pure-jump global scheme."""
         h, a = self.hidden, self.activation
+        specs = {}
         if self.scheme == "global":
-            specs = {"uz": MLPSpec(2, h, 1, a, with_y0=True)}
+            if self.jump_diff:
+                specs["uz"] = MLPSpec(2, h, 1, a, with_y0=True)
         else:
-            specs = {"uz": MLPSpec(2, h, 1 if self.scheme in _REGRESSIONS
-                                   else 2, a)}
+            z_out = self.jump_diff and self.with_heads
+            specs["uz"] = MLPSpec(2, h, 2 if z_out else 1, a)
         if self.use_gam_net:
-            specs["gam"] = MLPSpec(3, h, 1, a)
+            specs["gam"] = MLPSpec(3, h, 1, a, with_y0=(
+                self.scheme == "global" and not self.jump_diff))
         return specs
 
     def init_params(self, generator: torch.Generator) -> Params:
@@ -224,21 +255,39 @@ class PricingSolver:
         return self._apply(params["uz"], torch.stack([t, x], -1))
 
     def _node_feature(self, j):
-        """The Γ net's jump feature f: J for ``global``, e^J for
-        multistep2/sumlocal2."""
-        return j if self.scheme == "global" else torch.exp(j)
+        """The Γ net's jump feature f per node, before any factor of X: J
+        for jump-diffusion ``global``, e^J for jump-diffusion multistep2/
+        sumlocal2, and J in the pure-jump regime, where f = X·J
+        (``_x_prop``)."""
+        if self.scheme == "global" or not self.jump_diff:
+            return j
+        return torch.exp(j)
+
+    @property
+    def _x_prop(self) -> bool:
+        """Whether the Γ net's feature is X·``_node_feature`` (pure jump)."""
+        return not self.jump_diff
+
+    def _unet_factor(self, j):
+        """φ(J) of the U-net's Γ input X·φ: e^J (jump-diffusion), 1 + J
+        (pure-jump, the reference's X + X·J)."""
+        return torch.exp(j) if self.jump_diff else 1.0 + j
 
     def _gamma_inputs(self, i, x, j):
-        """Γ-net inputs (t, X, f) broadcast to one shape, f =
-        ``_node_feature(J)``."""
+        """Γ-net inputs (t, X, f) broadcast to one shape: f =
+        ``_node_feature(J)``, times X in the pure-jump regime."""
         t, xb, fb = torch.broadcast_tensors(self._time(i, x), x,
                                             self._node_feature(j))
+        if self._x_prop:
+            fb = xb * fb
         return torch.stack([t, xb, fb], -1)
 
     def _unet_jump_inputs(self, i, x, j):
-        """U-net inputs (t, X·e^J) of Γ for multistep1/sumlocal1."""
+        """U-net inputs of Γ for multistep1/sumlocal1: (t, X·e^J), or
+        (t, X + X·J) in the pure-jump regime."""
         t, xb, jb = torch.broadcast_tensors(self._time(i, x), x, j)
-        return torch.stack([t, xb * torch.exp(jb)], -1)
+        arg = xb * torch.exp(jb) if self.jump_diff else xb + xb * jb
+        return torch.stack([t, arg], -1)
 
     def _gamma_head(self, params, i, x, j) -> torch.Tensor:
         """Γ(t, X, J), broadcast over (i, x, j): the Γ net, or the U-net's
@@ -299,17 +348,26 @@ class PricingSolver:
                    zip(nodes.view(n_blocks, block), w.view(n_blocks, block)))
 
     def _rank1_sweep_mean(self, params, i, x, nodes, weights) -> torch.Tensor:
-        """The same expectation through the rank-1 sweep of the Γ net
+        """The same expectation through the rank-1 sweep of the swept head
         (``ops/sweep.py``): kernels B3/B4 on CUDA tensors, their plain
-        version on CPU tensors, on the node feature ``_node_feature``.
-        ``weights=None`` means uniform (the Monte-Carlo node set)."""
+        version on CPU tensors.  A Γ net is swept on the node feature
+        ``_node_feature`` (times X in the pure-jump regime), the pure-jump
+        U-net on (t, X·(1 + J)).  ``weights=None`` means uniform (the
+        Monte-Carlo node set)."""
         if weights is None:
             weights = torch.full_like(nodes, 1.0 / nodes.shape[0])
-        gam = params["gam"]
-        a, c, v, wb2 = rank1_three_feature(gam, self._time(i, x),
-                                           self._node_feature(nodes), False,
-                                           weights)
-        return fused_sweep(x, a, c, gam["W"][1], gam["b"][1], v) + wb2
+        t = self._time(i, x)
+        if self.use_gam_net:
+            head = params["gam"]
+            a, c, v, wb2 = rank1_three_feature(head, t,
+                                               self._node_feature(nodes),
+                                               self._x_prop, weights)
+        else:
+            head = params["uz"]
+            a, c, v, wb2 = rank1_two_feature(head, t,
+                                             self._unet_factor(nodes),
+                                             weights)
+        return fused_sweep(x, a, c, head["W"][1], head["b"][1], v) + wb2
 
     def _gamma_and_compensator(self, params, i, x, j, mc_nodes):
         """Γ(t, X, J) at the realized jump and its compensator E_J'[Γ] for
@@ -364,12 +422,16 @@ class PricingSolver:
     def _prenoise(self, generator: torch.Generator, batch: int,
                   rows: Optional[int] = None):
         """All rollout noise at once, on the generator's device: dW (rows, B)
-        Brownian increments, J (rows, B) realized jumps, and with the
-        Monte-Carlo compensator the (rows, n_mc) node draws of every step.
-        ``rows`` defaults to N."""
+        Brownian increments (zero-width (rows, 0) in the pure-jump regime),
+        J (rows, B) realized jumps, and with the Monte-Carlo compensator the
+        (rows, n_mc) node draws of every step.  ``rows`` defaults to N."""
         rows = self.model.N if rows is None else rows
-        dw = math.sqrt(self.model.dt) * torch.randn(
-            (rows, batch), generator=generator, device=generator.device)
+        dev = generator.device
+        if self.jump_diff:
+            dw = math.sqrt(self.model.dt) * torch.randn(
+                (rows, batch), generator=generator, device=dev)
+        else:
+            dw = torch.zeros((rows, 0), device=dev)
         j = self.model.sample_jumps(generator, (rows, batch))
         if self.compensator.kind == "mc":
             return dw, j, self.model.sample_jumps(
@@ -378,8 +440,8 @@ class PricingSolver:
 
     def _check_noise(self, noise, batch: int) -> None:
         n, mc = self.noise_rows, self.compensator.kind == "mc"
-        want = [(n, batch), (n, batch)] + ([(n, self.compensator.n_mc)]
-                                           if mc else [])
+        want = [(n, batch if self.jump_diff else 0), (n, batch)] + (
+            [(n, self.compensator.n_mc)] if mc else [])
         got = [tuple(t.shape) for t in noise]
         if got != want:
             raise ValueError(f"noise must be (dw, j{', mc_nodes' if mc else ''}"
@@ -395,10 +457,10 @@ class PricingSolver:
         ``shift_next`` fits row i on the x_{i+1} marginal, where the
         sumlocal schemes evaluate their step-i heads; those schemes price
         the forward drift at X_i un-hoisted, so no price table is built
-        then.  The Z table "zc" is the global scheme's only.  The
-        compensator sweeps the quadrature, or each step's Monte-Carlo draws
-        (through the rank-1 sweep under ``sweep_impl="pallas"``, one call
-        per step, as in the JAX package)."""
+        then.  The Z table "zc" is the jump-diffusion global scheme's only.
+        The compensator sweeps the quadrature, or each step's Monte-Carlo
+        draws (through the rank-1 sweep under ``sweep_impl="pallas"``, one
+        call per step, as in the JAX package)."""
         model, n = self.model, self.model.N
         dw, j = noise[0], noise[1]
         incr = model.uncoupled_log_increments(dw[:n], j[:n])
@@ -432,7 +494,7 @@ class PricingSolver:
         out = {"lo": lo, "hi": hi, "cc": fit(comp)}
         if not shift_next:
             out["pc"] = fit(model.price(steps, nodes))
-        if self.scheme == "global":
+        if self.scheme == "global" and self.jump_diff:
             out["zc"] = fit(self._uz(params, steps, nodes)[..., 0])
         return out
 
@@ -470,12 +532,13 @@ class PricingSolver:
 
     def sweep_unmet(self) -> List[str]:
         """The unmet preconditions of the sweep kernels B3/B4 (empty when
-        they apply): a swept head the kernels take (a Γ net of one output,
-        not the 2-output U-net of multistep1/sumlocal1), f32 heads, and no
-        compensator sharding.  The JAX package warns and falls back to its
-        XLA sweep on these; the port refuses them."""
+        they apply): a swept head the kernels take (one output: a Γ net, or
+        the pure-jump U-net of multistep1/sumlocal1, not the jump-diffusion
+        2-output U-net), f32 heads, and no compensator sharding.  The JAX
+        package warns and falls back to its XLA sweep on these; the port
+        refuses them."""
         reasons = self._head_unmet()
-        if not self.use_gam_net and self.with_heads:
+        if not self.use_gam_net and self.with_heads and self.jump_diff:
             reasons.append(f"scheme {self.scheme!r} sweeps the 2-output "
                            "U-net, Γ = U(t, X·e^J)[0]; the kernels take a "
                            "Γ net of one output")
@@ -495,14 +558,21 @@ class PricingSolver:
                                   n_pieces=self.pw_pieces,
                                   degree=self.pw_degree)
         return lambda gp, y0, tables, dw, j: rollout_plain(
-            self.model, gp, y0, tables, dw, j, self.time_scale, self._act)
+            self.model, gp, y0, tables, dw, j, self.time_scale, self._act,
+            x_prop=self._x_prop)
 
     def _mc_rows(self, noise):
         """The per-step Monte-Carlo node draws of ``noise``, or a row of
         Nones without the Monte-Carlo compensator."""
         if self.compensator.kind == "mc":
             return noise[2]
-        return [None] * noise[0].shape[0]
+        return [None] * noise[1].shape[0]
+
+    def _fstep(self, i, x, dw, j, y, price=None):
+        """The model's forward step; the pure-jump step takes no dW."""
+        if self.jump_diff:
+            return self.model.step(i, x, dw, j, y, price=price)
+        return self.model.step(i, x, j, y, price=price)
 
     def _rollout_direct(self, params, noise, trace: bool = False):
         """(x_N, y_N) of the un-hoisted global rollout: each step's heads,
@@ -510,14 +580,15 @@ class PricingSolver:
         the (N + 1, B) trajectories of X and Y instead."""
         model, dt = self.model, self.model.dt
         dw, j, mc = noise[0], noise[1], self._mc_rows(noise)
-        x = model.init_x(dw.shape[1], dw.device)
-        y = params["uz"]["y0"] * torch.ones_like(x)
+        x = model.init_x(j.shape[1], j.device)
+        y = params[self._y0_head]["y0"] * torch.ones_like(x)
         xs, ys = [x], [y]
         for i in range(model.N):
             gam, comp = self._gamma_and_compensator(params, i, x, j[i], mc[i])
             y = y - dt * model.f(y) + gam - comp
-            y = y + self._uz(params, i, x)[..., 0] * dw[i]
-            x = model.step(i, x, dw[i], j[i], y)
+            if self.jump_diff:
+                y = y + self._uz(params, i, x)[..., 0] * dw[i]
+            x = self._fstep(i, x, dw[i], j[i], y)
             if trace:
                 xs.append(x)
                 ys.append(y)
@@ -525,7 +596,7 @@ class PricingSolver:
 
     def _global_loss(self, params, noise, roll):
         if self.hoist:
-            x_n, y_n = roll(params["gam"], params["uz"]["y0"],
+            x_n, y_n = roll(params["gam"], params[self._y0_head]["y0"],
                             self._hoist_tables(params, noise), noise[0],
                             noise[1])
         else:
@@ -542,7 +613,7 @@ class PricingSolver:
         heads = self.with_heads
         tables = (self._hoist_tables(params, noise)
                   if heads and self.hoist else None)
-        x = model.init_x(dw.shape[1], dw.device)
+        x = model.init_x(j.shape[1], j.device)
         ys, adds = [], []
         for i in range(model.N):
             out = self._uz(params, i, x)
@@ -552,9 +623,10 @@ class PricingSolver:
                 gam, comp = self._heads_gamma_comp(params, tables, i, x, j[i],
                                                    mc[i])
                 to_add = to_add + gam - comp
-                to_add = to_add + out[..., 1] * dw[i]
-            x = model.step(i, x, dw[i], j[i], y,
-                           price=self._step_price(tables, i, x))
+                if self.jump_diff:
+                    to_add = to_add + out[..., 1] * dw[i]
+            x = self._fstep(i, x, dw[i], j[i], y,
+                            price=self._step_price(tables, i, x))
             ys.append(y)
             adds.append(to_add)
         fwd = torch.stack(ys) + _suffix_sum(torch.stack(adds))     # (N, B)
@@ -565,12 +637,14 @@ class PricingSolver:
     # -------------------------------------------------------------- sumlocal
     def _sumlocal_heads(self, params, tables, i, x, j, mc_nodes):
         """(Y, Z, Γ, compensator) of the sumlocal schemes at (i, x, j); Z, Γ
-        and the compensator are None for the regression."""
+        and the compensator are None for the regression, Z also in the
+        pure-jump regime."""
         out = self._uz(params, i, x)
         if not self.with_heads:
             return out[..., 0], None, None, None
         gam, comp = self._heads_gamma_comp(params, tables, i, x, j, mc_nodes)
-        return out[..., 0], out[..., 1], gam, comp
+        z = out[..., 1] if self.jump_diff else None
+        return out[..., 0], z, gam, comp
 
     def _sumlocal_loss(self, params, noise):
         """sumlocal1/2 and sumlocal_reg: the one-step residual loss
@@ -586,7 +660,7 @@ class PricingSolver:
         model, n, dt = self.model, self.model.N, self.model.dt
         dw, j_all, mc = noise[0], noise[1], self._mc_rows(noise)
         heads = self.with_heads
-        x = model.init_x(dw.shape[1], dw.device)
+        x = model.init_x(j_all.shape[1], j_all.device)
         j = j_all[n]
         y_prev, z_prev, gam_prev, comp_prev = self._sumlocal_heads(
             params, None, 0, x, j, mc[n])
@@ -596,10 +670,12 @@ class PricingSolver:
         for i in range(n):
             to_add = dt * model.f(y_prev)
             if heads:
-                to_add = to_add - gam_prev + comp_prev - z_prev * dw[i]
+                to_add = to_add - gam_prev + comp_prev
+                if self.jump_diff:
+                    to_add = to_add - z_prev * dw[i]
             # the forward drift's A(i, X_i) is priced un-hoisted: the
             # shift_next tables span the x_{i+1} marginals
-            x = model.step(i, x, dw[i], j, y_prev)
+            x = self._fstep(i, x, dw[i], j, y_prev)
             y_net, z_prev, gam_prev, comp_prev = self._sumlocal_heads(
                 params, tables, i, x, j_all[i], mc[i])
             y_next = model.payoff(x) if i == n - 1 else y_net
@@ -611,8 +687,9 @@ class PricingSolver:
     def build_loss_from_noise(self, batch: int) -> Callable:
         """``loss(params, noise)`` on given noise tensors — (dw, j), or (dw,
         j, mc_nodes) with the Monte-Carlo compensator, each of
-        ``noise_rows`` rows — so that the same noise can drive this solver
-        and another implementation."""
+        ``noise_rows`` rows, dw (rows, 0) in the pure-jump regime — so that
+        the same noise can drive this solver and another
+        implementation."""
         roll = (self._rollout() if self.hoist and self.scheme == "global"
                 else None)
 
@@ -639,11 +716,12 @@ class PricingSolver:
 
     # ------------------------------------------------------------- evaluation
     def y0_estimate(self, params: Params) -> torch.Tensor:
-        """Current Y0: the trainable scalar of the global scheme, else the
-        U-net's U(0, x0) (the reference's mean over identical inputs
-        X_0 = x0 equals the single evaluation)."""
+        """Current Y0: the trainable scalar of the global scheme (on the Γ
+        net in the pure-jump regime), else the U-net's U(0, x0) (the
+        reference's mean over identical inputs X_0 = x0 equals the single
+        evaluation)."""
         if self.scheme == "global":
-            return params["uz"]["y0"]
+            return params[self._y0_head]["y0"]
         x = self.model.init_x(1, params["uz"]["W"][0].device)
         return self._uz(params, 0, x)[0, 0]
 
@@ -654,8 +732,9 @@ class PricingSolver:
         (coupling zeroed, Y fed as 0), drawn on ``generator``: an
         oracle-free start that keeps Adam out of the spurious negative-Y0
         basin a unit-normal draw of y0 can land in.  Only the global scheme
-        has a y0."""
-        if "y0" not in params.get("uz", {}):
+        has a y0 (on the Γ net in the pure-jump regime)."""
+        head = self._y0_head
+        if "y0" not in params.get(head, {}):
             raise ValueError(
                 f"scheme {self.scheme!r} has no trainable y0 to warm-start")
         from deepfbsdejsolvers_torch.models.merton import abs_coupling
@@ -666,15 +745,17 @@ class PricingSolver:
             x = model.init_x(batch, dev)
             zero = torch.zeros_like(x)
             for i in range(model.N):
-                dw = math.sqrt(model.dt) * torch.randn(
+                dw = (math.sqrt(model.dt) * torch.randn(
                     (batch,), generator=generator, device=dev)
+                      if self.jump_diff else None)
                 j = model.sample_jumps(generator, (batch,))
+                noise = (dw, j) if self.jump_diff else (j,)
                 # the coupling 0·|Y − A| drops A, so no path is priced
-                x = model.step(i, x, dw, j, zero, price=zero)
+                x = model.step(i, x, *noise, zero, price=zero)
             y0 = math.exp(-model.r * model.T) * torch.mean(model.payoff(x))
-        old = params["uz"]["y0"]
+        old = params[head]["y0"]
         out = dict(params)
-        out["uz"] = dict(params["uz"], y0=y0.to(old.device, old.dtype))
+        out[head] = dict(params[head], y0=y0.to(old.device, old.dtype))
         return out
 
     def hoist_clamp_fractions(self, params: Params,
@@ -705,18 +786,18 @@ class PricingSolver:
             tables = self._hoist_tables(params, noise, shift_next=sumlocal)
             out_frac = lambda i, x: torch.mean(
                 ((x < tables["lo"][i]) | (x > tables["hi"][i])).to(x.dtype))
-            x = model.init_x(dw.shape[1], dw.device)
+            x = model.init_x(j_all.shape[1], j_all.device)
             fracs = []
             if sumlocal:
                 j, y = j_all[n], self._uz(params, 0, x)[..., 0]
                 for i in range(n):
-                    x = model.step(i, x, dw[i], j, y)
+                    x = self._fstep(i, x, dw[i], j, y)
                     fracs.append(out_frac(i, x))
                     y = (model.payoff(x) if i == n - 1
                          else self._uz(params, i, x)[..., 0])
                     j = j_all[i]
                 return torch.stack(fracs)
-            y = (params["uz"]["y0"] if self.scheme == "global"
+            y = (params[self._y0_head]["y0"] if self.scheme == "global"
                  else torch.zeros(())) * torch.ones_like(x)
             for i in range(n):
                 fracs.append(out_frac(i, x))
@@ -724,12 +805,14 @@ class PricingSolver:
                     gam, comp = self._heads_gamma_comp(params, tables, i, x,
                                                        j_all[i], None)
                     y = y - dt * model.f(y) + gam - comp
-                    y = y + table_eval(tables["zc"][i], x, tables["lo"][i],
-                                       tables["hi"][i]) * dw[i]
+                    if self.jump_diff:
+                        y = y + table_eval(tables["zc"][i], x,
+                                           tables["lo"][i],
+                                           tables["hi"][i]) * dw[i]
                 else:
                     y = self._uz(params, i, x)[..., 0]
-                x = model.step(i, x, dw[i], j_all[i], y,
-                               price=self._step_price(tables, i, x))
+                x = self._fstep(i, x, dw[i], j_all[i], y,
+                                price=self._step_price(tables, i, x))
             return torch.stack(fracs)
 
     def simulate_paths(self, params: Params, generator: torch.Generator,

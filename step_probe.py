@@ -6,8 +6,9 @@ gate alone in this process.
 For each gate of the port's runner
 (``deepfbsdejsolvers_torch.experiments.convergence_gates``; by default
 merton_speed, merton_speed_mc and merton_direct) it builds the gate's
-solver at its registered configuration and takes Adam steps at the gate's
-batch and peak learning rate: 3 untimed, then ``--steps`` back to back
+solver at its registered configuration (for an extrapolated gate, the
+solver of its fit at the full coupling; the gate trains two such fits per
+seed) and takes Adam steps at the gate's batch and peak learning rate: 3 untimed, then ``--steps`` back to back
 between two CUDA events (queued as the runner's ``fit`` queues them, one
 wait at the end), then 2 under ``chip_smoke.profile_steps`` (device busy
 time, idle share, device operations per step, the largest kernels).  From
@@ -26,6 +27,7 @@ Prints the card's name and power limit.  Exits non-zero without a card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import subprocess
 import sys
 import time
@@ -62,11 +64,19 @@ def gate_step(name: str, device: str = "cuda"):
     from deepfbsdejsolvers_torch.nets.mlp import param_leaves
 
     entry = cg.build_registry()[name]
-    if entry["kind"] != "gate":
-        raise SystemExit(f"step_probe: {name} is not a one-solver gate")
     args = dict(entry["args"])
-    budget = {k: args.pop(k, default) for k, default in (
-        ("batch", 8192), ("peak_lr", 6e-3), ("steps", 4800), ("seeds", 1))}
+    extrapolated = entry["kind"] == "extrapolated"
+    runner = cg.run_extrapolated_gate if extrapolated else cg.run_gate
+    defaults = inspect.signature(runner).parameters
+    budget = {k: args.pop(k, defaults[k].default)
+              for k in ("batch", "peak_lr", "steps", "seeds")}
+    fits = 1
+    if extrapolated:
+        # two fits per seed, at aLin/2 and aLin, of the same cost
+        a_lin = args.pop("a_lin", defaults["a_lin"].default)
+        args["model"] = args.pop("make_model")(a_lin)
+        args["scheme"] = "global"
+        fits = 2
     for key in ("oracle", "tail", "warm_y0"):
         args.pop(key, None)
     solver = PricingSolver(args.pop("model"), args.pop("scheme"),
@@ -77,7 +87,7 @@ def gate_step(name: str, device: str = "cuda"):
     step = make_step(solver.build_loss(budget["batch"]),
                      make_adam(params, budget["peak_lr"]), params)
     return (step, make_generator(device, 1), budget["batch"],
-            budget["seeds"] * budget["steps"])
+            fits * budget["seeds"] * budget["steps"])
 
 
 def steps_ms(step, gen, steps: int) -> float:

@@ -1,8 +1,8 @@
 """CPU tier of the port's accuracy-gate runner
 (``deepfbsdejsolvers_torch.experiments.convergence_gates``).
 
-The registry holds the JAX package's ten Merton gate rows with the same
-configuration and budget keys; the first tests hold them, and the smoke
+The registry holds the JAX package's ten Merton and five Variance-Gamma
+gate rows with the same configuration and budget keys; the first tests hold them, and the smoke
 budgets below, against the JAX gate script and its smoke tier
 (tests/test_gates_smoke.py).  Then every row trains end to end through
 ``run_entry`` at that tier's budget (300 cosine-decayed Adam steps, batch
@@ -12,13 +12,16 @@ broken path, a diverging loss or a mis-built table fails, while the real
 ``GATE_FILES`` names (that file's ``GATES``), so that no file trains for
 long on one worker.
 
-Three rows train for fewer steps than that tier gives them, because the
-port's eager loop on the CPU costs ~4.7 ms per time step at batch 256.  Two
+Five rows train for fewer steps than that tier gives them, because the
+port's eager loop on the CPU costs ~4.7 ms per time step at batch 256.  Four
 are warm-started: ``merton_coupled_direct`` (N = 1600, ~7.5 s a step) 8
-steps where the JAX tier takes 60, and ``merton_global_extrapolated`` (two
-fits per seed) 150 where it takes 300.  Both start Y0 at the Monte-Carlo
+steps where the JAX tier takes 60, ``vg_coupled_direct`` (N = 240, hidden
+(64, 64), ~4.4 s a step: 265 s for the JAX tier's 60 steps) 12, and the
+two extrapolated rows (two fits per seed) 150 where it takes 300 (the VG
+row's file took 117 s at 300).  All four start Y0 at the Monte-Carlo
 estimate of the price, so what they check is that training does not
-diverge, as in the JAX tier.  ``merton_direct`` (multistep1 sweeping its
+diverge, as in the JAX tier; at a peak rate of 3e-3, 12 Adam steps move
+Y0 by at most 0.036, inside the 5e-2 check.  ``merton_direct`` (multistep1 sweeping its
 U-net over 49 nodes at every path, ~0.4 s a step on one CPU thread) trains
 150 steps where the JAX tier takes 300: on one CPU thread its read-out
 sat 1.85e-2 from the oracle after 150 steps and 2.05e-2 after 300, so
@@ -44,6 +47,8 @@ pytestmark = pytest.mark.gates
 BUDGET = dict(steps=300, seeds=1, batch=256, tail=4)
 PER_GATE = {
     "merton_coupled_direct": dict(steps=8),
+    "vg_coupled_direct": dict(steps=12),
+    "vg_global_extrapolated": dict(steps=150),
     "merton_global_extrapolated": dict(steps=150),
     "merton_direct": dict(steps=150),
     "merton_speed_mc": dict(
@@ -53,7 +58,7 @@ PER_GATE = {
 }
 # the rows trained for fewer steps than in the JAX tier (module docstring)
 TRIMMED = ("merton_coupled_direct", "merton_global_extrapolated",
-           "merton_direct")
+           "merton_direct", "vg_coupled_direct", "vg_global_extrapolated")
 
 GATE_FILES = {
     "merton_speed": "test_torch_gates.py",
@@ -66,6 +71,11 @@ GATE_FILES = {
     "merton_cheb": "test_torch_gates_cheb.py",
     "merton_global": "test_torch_gates_global.py",
     "merton_global_extrapolated": "test_torch_gates_extrapolated.py",
+    "vg_coupled_direct": "test_torch_gates_vg_coupled.py",
+    "vg_direct": "test_torch_gates_vg_direct.py",
+    "vg_speed": "test_torch_gates_vg_speed.py",
+    "vg_half_coupling": "test_torch_gates_vg_half.py",
+    "vg_global_extrapolated": "test_torch_gates_vg_extrapolated.py",
 }
 GATES = ["merton_speed"]
 
@@ -104,13 +114,19 @@ def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
+# the fields only the JAX Merton model has: its "table" price mode's
+JAX_ONLY_FIELDS = {"MertonJumpModel": {"table_points", "table_log_m_max"},
+                   "VGModel": set()}
+
+
 def _assert_same_model(ours, theirs):
     """Every field the port's model has equals the JAX model's; the fields
-    only the JAX model has (its "table" price mode's) sit at their
-    defaults; the couplings agree on a grid."""
+    only the JAX model has (``JAX_ONLY_FIELDS``) sit at their defaults;
+    the couplings agree on a grid."""
+    assert type(ours).__name__ == type(theirs).__name__
     mine, jax_side = _fields(ours), _fields(theirs)
     extra = set(jax_side) - set(mine)
-    assert extra == {"table_points", "table_log_m_max"}, extra
+    assert extra == JAX_ONLY_FIELDS[type(theirs).__name__], extra
     for name in extra:
         default = next(f.default for f in dataclasses.fields(theirs)
                        if f.name == name)
@@ -139,16 +155,30 @@ def _assert_same_args(ours, theirs):
             assert got == want, key
 
 
-def test_merton_rows_match_the_jax_registry(jax_cg):
+def _assert_rows_match(prefix, jax_cg):
+    """The registry's rows named ``prefix``… equal the JAX script's."""
     theirs = {k: v for k, v in jax_cg.build_registry().items()
-              if k.startswith("merton")}
-    ours = port_registry()
-    assert sorted(ours) == sorted(theirs) == sorted(GATE_FILES)
+              if k.startswith(prefix)}
+    ours = {k: v for k, v in port_registry().items() if k.startswith(prefix)}
+    assert sorted(ours) == sorted(theirs) == sorted(
+        g for g in GATE_FILES if g.startswith(prefix))
     for name, entry in theirs.items():
         assert ours[name]["kind"] == entry["kind"], name
         _assert_same_args(ours[name]["args"], entry["args"])
+    return ours
+
+
+def test_merton_rows_match_the_jax_registry(jax_cg):
+    ours = _assert_rows_match("merton", jax_cg)
     assert ours["merton_speed"]["args"]["oracle"] == pytest.approx(
         0.271457, abs=1e-6)
+    assert sorted(port_registry()) == sorted(GATE_FILES)
+
+
+def test_vg_rows_match_the_jax_registry(jax_cg):
+    ours = _assert_rows_match("vg", jax_cg)
+    assert ours["vg_speed"]["args"]["oracle"] == pytest.approx(
+        0.133141, abs=2e-6)
 
 
 def test_smoke_budgets_follow_the_jax_tier(jax_cg):

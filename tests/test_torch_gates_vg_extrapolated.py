@@ -1,0 +1,16 @@
+"""One row of the port's gate runner trained on the CPU at the smoke budget of
+tests/test_torch_gates.py: the Richardson-extrapolated coupled
+Variance-Gamma global scheme, two warm-started fits per seed."""
+
+import pytest
+
+from test_torch_gates import check_gate, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.gates
+
+GATES = ["vg_global_extrapolated"]
+
+
+@pytest.mark.parametrize("name", GATES)
+def test_gate_config_trains(name):
+    check_gate(name)

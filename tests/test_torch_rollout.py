@@ -125,18 +125,8 @@ def test_cuda_request_without_a_card_raises():
                       **HOIST)
 
 
-class _PureJump:
-    """A model of the pure-jump regime (the Variance-Gamma model's, ROADMAP
-    item 10), otherwise the Merton model."""
-
-    regime = "pure_jump"
-
-    def __getattr__(self, name):
-        return getattr(_model(), name)
-
-
 @pytest.mark.parametrize("kw", [
-    dict(model=_PureJump()),
+    dict(hoist_z=False),
     dict(comp_axis="comp"),
     dict(compute_dtype="bfloat16"),
     dict(adjoint=True),
@@ -144,9 +134,8 @@ class _PureJump:
 ])
 def test_unported_configurations_raise(kw):
     args = dict(HOIST, hidden=(8, 8), device="cpu", **kw)
-    model = args.pop("model", _model())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PricingSolver(model, "global", **args)
+        PricingSolver(_model(), "global", **args)
 
 
 def test_b2_blocks_are_capped_independently_of_the_batch():

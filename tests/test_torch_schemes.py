@@ -55,7 +55,8 @@ def jax_noise(js, key, batch):
     """The JAX loss's noise as tensors: (dw, j) of N rows, or N + 1 for the
     sumlocal schemes, and for the Monte-Carlo compensator the node draws of
     every row."""
-    rows = N + 1 if js.scheme.startswith("sumlocal") else N
+    n = js.model.N
+    rows = n + 1 if js.scheme.startswith("sumlocal") else n
     dw, j, kms = js._prenoise(key, batch, rows=rows)
     noise = [torch.tensor(np.asarray(dw)), torch.tensor(np.asarray(j))]
     if js.compensator.kind == "mc":
