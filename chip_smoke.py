@@ -63,7 +63,20 @@ Phases, each fatal on failure:
    calls back to back between two CUDA events, after a warm-up) at the
    path's shapes; B3/B4 also at 5000 Monte-Carlo nodes and on the two
    pure-jump forms at the 96-node quadrature;
-5. run the accuracy gate ``merton_speed_fused`` through the port's gate
+5. drive the smart-grid MFG model (``mfg_phases``), every launch counter
+   set to 0 just before and each required to read 0 just after (its
+   paths reach no kernel): the comparison model (N = 95, hidden (20, 20) /
+   (22, 22)) with the icdf Cox sampler at batch 2^17, the global scheme
+   trained 2 × 2 steps through ``MFGSolver.train``, then timed over 5
+   steps and profiled over 2; the exact sampler, 2 timed steps, and
+   ``torch.poisson``'s mean and variance on 2^20 draws at the trough, peak
+   and +5σ Cox rates; the four other schemes trained 2 × 2 steps and timed
+   over 2 (sumlocal also with couplage OFF); the Picard warm start on the
+   linear-quadratic corner (16384 paths, 24 iterates), both read-outs
+   within 2e-2 relative of the exact oracle; and the trained global
+   policy replayed on 10^5 frozen paths: finite processes and objective,
+   and a Price of Anarchy of exactly 1.0 against itself;
+6. run the accuracy gate ``merton_speed_fused`` through the port's gate
    runner at its registered budget (3 seeds × 2400 steps, batch 8192,
    warm Y0): it must pass (|Y0 − 0.271457| ≤ 1e-3 on every seed) and
    launch B1 and B2 once per step.
@@ -86,6 +99,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -136,6 +150,9 @@ VG_SWEEP_CHECKS = (
     (8, "quadrature", "two_feature", CHECK_BATCH),
 )
 SCHEME_STEPS, SCHEME_EPOCHS = 2, 2
+# The MFG phases: the comparison model's batch, the warm start's paths and
+# Picard iterates (the bar of its LQ check is 2e-2 relative)
+MFG_BATCH, MFG_WARM_BATCH, MFG_PICARD = 2**17, 16384, 24
 GATE = "merton_speed_fused"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
 # FP32 outside the tensor cores, and HBM3 bandwidth.
@@ -518,9 +535,11 @@ def time_sweep(args, g, node_block=None) -> dict:
     return out
 
 
-def profile_steps(step, gen, step_ms: float, steps: int = 3) -> None:
+def profile_steps(step, gen, step_ms: float, steps: int = 3):
     """Device time per training step by kernel (torch.profiler), and the
-    device's idle share against the unprofiled step time."""
+    device's idle share against the unprofiled step time; returns (busy
+    ms, device ops) per step, or None when the profiler saw no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -543,12 +562,14 @@ def profile_steps(step, gen, step_ms: float, steps: int = 3) -> None:
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         print("profile: the profiler recorded no device time")
-        return
+        return None
+    ops = sum(r[1] for r in rows)
     print(f"profile: device busy {busy:.3f} ms of a {step_ms:.3f} ms step "
-          f"(idle share {1 - busy / step_ms:.3f}), "
-          f"{sum(r[1] for r in rows):.0f} device ops per step")
+          f"(idle share {1 - busy / step_ms:.3f}), {ops:.0f} device ops "
+          "per step")
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         print(f"  {ms:8.4f} ms  x{count:5.1f}  {name[:100]}")
+    return busy, ops
 
 
 def train_path(solver_kw: dict, per_step: dict, per_eval: dict, counters,
@@ -602,6 +623,182 @@ def time_step(trainer, tag: int, label: str, reps: int = 5):
           f"{n} ({rate:.4g} paths·steps/s)")
     profile_steps(step, gen, step_ms, steps=2)
     return step_ms, rate
+
+
+def mfg_step(solver, params, batch: int, tag: int, reps: int, label: str,
+             profile: bool = False) -> dict:
+    """Time (``cuda_ms``) and, with ``profile``, profile an Adam step of
+    ``solver``'s coupled loss at ``batch``: {"ms", "busy_ms", "ops"}."""
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+    from deepfbsdejsolvers_torch.solvers.train import (
+        make_adam, make_generator, make_step)
+
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    step = make_step(solver.build_losses(batch)["coupled"],
+                     make_adam(params, 1e-3), params)
+    gen = make_generator("cuda", SEED, tag)
+    ms = cuda_ms(lambda: step(gen), reps=reps, warmup=1)
+    print(f"MFG {label} train step: {ms:.3f} ms at batch {batch}, N "
+          f"{solver.model.N}")
+    out = {"ms": ms}
+    if profile:
+        prof = profile_steps(step, gen, ms, steps=2)
+        if prof is not None:
+            out.update(busy_ms=prof[0], ops=prof[1])
+    return out
+
+
+def mfg_train(solver, label: str, couplage: str = "ON") -> dict:
+    """Phase 5: 2 outer epochs of 2 Adam steps of ``solver`` at batch
+    ``MFG_BATCH`` through ``MFGSolver.train``; fails on a non-finite loss
+    or read-out, or a Y0 pair that did not move."""
+    from deepfbsdejsolvers_torch.solvers.train import make_generator
+
+    y0_init = tuple(float(v) for v in solver.y0_estimates(
+        solver.init_params(make_generator("cpu", SEED, 0))))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.train(SEED, MFG_BATCH, MFG_BATCH, 2, 2, 1e-3,
+                       couplage=couplage, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    y0 = (res.y0_hat_history[-1], res.y0_history[-1])
+    print(f"MFG {label} (couplage {couplage}): losses {res.loss_history}, "
+          f"(Y0_hat, Y0) {y0_init} -> {y0}, {seconds:.2f} s")
+    values = res.loss_history + res.y0_hat_history + res.y0_history
+    if not all(math.isfinite(v) for v in values):
+        fail(f"MFG {label}: a non-finite loss or read-out")
+    if y0 == y0_init:
+        fail(f"MFG {label}: (Y0_hat, Y0) did not move in training")
+    return {"result": res, "seconds": seconds}
+
+
+def check_poisson(model, rates_hq=(0.6, 0.74, 0.9), draws=2**20) -> dict:
+    """torch.poisson on the card at the Cox rates λ·dt of hQ at the
+    profile's trough, its peak and a +5σ excursion: mean within 4.5
+    standard errors (+1e-3) of λ·dt, variance over mean within 1e-2."""
+    from deepfbsdejsolvers_torch.solvers.train import make_generator
+
+    gen = make_generator("cuda", SEED, 61)
+    out = {}
+    for hq in rates_hq:
+        lam_dt = float(model.intensity_of(torch.tensor(hq)) * model.dt)
+        dn = torch.poisson(torch.full((draws,), lam_dt, device="cuda"),
+                           generator=gen).double()
+        mean, ratio = float(dn.mean()), float(dn.var()) / lam_dt
+        print(f"torch.poisson at λ·dt {lam_dt:.6g}: mean {mean:.6g}, "
+              f"var/mean {ratio:.5f} ({draws} draws)")
+        if abs(mean - lam_dt) > 4.5 * math.sqrt(lam_dt / draws) + 1e-3:
+            fail(f"torch.poisson mean {mean} at λ·dt {lam_dt}")
+        if abs(ratio - 1.0) > 1e-2:
+            fail(f"torch.poisson var/mean {ratio} at λ·dt {lam_dt}")
+        out[f"{lam_dt:.6g}"] = {"mean": mean, "var_over_mean": ratio}
+    return out
+
+
+def mfg_phases(counters) -> dict:
+    """Phase 5: the smart-grid MFG model on the card (no kernel may
+    launch): the comparison model's global scheme with the icdf sampler
+    (train, time, profile), the exact sampler and torch.poisson's moments,
+    the four other schemes (sumlocal also couplage OFF), the Picard warm
+    start on the linear-quadratic corner against the exact oracle, and the
+    frozen-noise replay of the trained global policy with its Price of
+    Anarchy against itself."""
+    from deepfbsdejsolvers_torch.eval.mfg_lq_oracle import solve_lq
+    from deepfbsdejsolvers_torch.eval.mfg_solutions import (
+        FrozenNoise, MFGFixedTrajectoryEvaluator, draw_frozen_noise,
+        price_of_anarchy)
+    from deepfbsdejsolvers_torch.experiments.configs import (
+        MFGComparisonConfig)
+    from deepfbsdejsolvers_torch.models.mfg_smart_grid import (
+        make_mfg_default)
+    from deepfbsdejsolvers_torch.solvers.mfg import MFGSolver
+    from deepfbsdejsolvers_torch.solvers.train import make_generator
+
+    t_start = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    out = {"steps": {}, "train_s": {}}
+    icdf = dataclasses.replace(make_mfg_default(), jump_sampler="icdf")
+    print(f"MFG comparison model: N {icdf.N}, hidden (20, 20) / (22, 22), "
+          f"batch {MFG_BATCH}, icdf depth {icdf._icdf_k_eff}")
+    glob = MFGSolver(icdf, "global", device="cuda")
+    trained = mfg_train(glob, "global icdf")
+    out["train_s"]["global"] = trained["seconds"]
+    params = trained["result"].params
+    out["steps"]["global"] = mfg_step(glob, params, MFG_BATCH, 50, 5,
+                                      "global icdf", profile=True)
+
+    exact = MFGSolver(make_mfg_default(), "global", device="cuda")
+    out["steps"]["global_exact"] = mfg_step(
+        exact, exact.init_params(make_generator("cpu", SEED, 0)),
+        MFG_BATCH, 51, 2, "global exact")
+    out["poisson"] = check_poisson(icdf)
+
+    for k, scheme in enumerate(("multistep", "sumlocal", "sumlocal_reg",
+                                "multistep_reg")):
+        solver = MFGSolver(icdf, scheme, device="cuda")
+        res = mfg_train(solver, scheme)
+        out["train_s"][scheme] = res["seconds"]
+        out["steps"][scheme] = mfg_step(solver, res["result"].params,
+                                        MFG_BATCH, 52 + k, 2, scheme)
+    out["train_s"]["sumlocal_off"] = mfg_train(
+        MFGSolver(icdf, "sumlocal", device="cuda"), "sumlocal",
+        couplage="OFF")["seconds"]
+
+    lq = dataclasses.replace(make_mfg_default(f0=0.0, f1=0.0),
+                             jump_sampler="icdf")
+    oracle = solve_lq(lq)
+    lq_solver = MFGSolver(lq, "global", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = lq_solver.warm_start_y0(
+        lq_solver.init_params(make_generator("cpu", SEED, 0)),
+        make_generator("cuda", SEED, 62), batch=MFG_WARM_BATCH,
+        n_picard=MFG_PICARD)
+    warm_y0 = (float(warm["hat"]["y0"]), float(warm["full"]["y0"]))
+    rel = [abs(v - w) / abs(w) for v, w in zip(warm_y0,
+                                                (oracle.y0_hat, oracle.y0))]
+    print(f"MFG warm start on the LQ model ({MFG_WARM_BATCH} paths, "
+          f"{MFG_PICARD} iterates, {time.perf_counter() - t0:.2f} s): "
+          f"(Y0_hat, Y0) {warm_y0}, oracle {oracle.y0_hat:.6f}, rel {rel}")
+    if max(rel) > 2e-2:
+        fail(f"MFG warm start {warm_y0} not within 2e-2 of {oracle.y0_hat}")
+    out["warm_start"] = {"y0": warm_y0, "oracle": oracle.y0_hat,
+                         "rel": max(rel)}
+
+    n_sim = MFGComparisonConfig().n_simulation
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dw0, dws, dn = draw_frozen_noise(icdf, make_generator("cuda", SEED, 63),
+                                     n_sim)
+    noise = FrozenNoise(dW0=dw0, dW=dws[0], dN=dn)
+    ev = MFGFixedTrajectoryEvaluator(glob, params, noise)
+    tr = ev.simulate_all_processes(n_sim)
+    cost, std = ev.objective_function()
+    poa = price_of_anarchy(ev, MFGFixedTrajectoryEvaluator(glob, params,
+                                                           noise), n_sim)
+    replay_s = time.perf_counter() - t0
+    print(f"MFG frozen replay of the global policy on {n_sim} paths "
+          f"({replay_s:.2f} s): cost {cost:.6g} ± {1.96 * std / n_sim**0.5:.4g}"
+          f", PoA against itself {poa['poa']!r}")
+    if not (math.isfinite(cost) and all(np.isfinite(v).all()
+                                        for v in tr.values())):
+        fail("MFG frozen replay: a non-finite process or objective")
+    if poa["poa"] != 1.0:
+        fail(f"MFG PoA of a policy against itself is {poa['poa']!r}, not 1")
+    out["replay"] = {"paths": n_sim, "cost": cost, "std": std,
+                     "poa_self": poa["poa"], "seconds": replay_s}
+
+    launched = {k: fn.launches for k, fn in counters.items()}
+    print(f"MFG phases: launches {launched} (none may launch), "
+          f"{time.perf_counter() - t_start:.1f} s")
+    if any(launched.values()):
+        fail(f"the MFG paths launched kernels: {launched}")
+    out["launches"] = launched
+    out["seconds"] = time.perf_counter() - t_start
+    return out
 
 
 def main() -> int:
@@ -757,7 +954,10 @@ def main() -> int:
         times_vg[form] = time_sweep(args, g)
         del args, g
 
-    # 5. one accuracy gate through the port's runner
+    # 5. the smart-grid MFG model: no kernel on its paths
+    mfg = mfg_phases(counters)
+
+    # 6. one accuracy gate through the port's runner
     print(f"gate {GATE} (3 seeds × 2400 steps, batch 8192):")
     entry = gates.build_registry()[GATE]
     for fn in counters.values():
@@ -835,7 +1035,8 @@ def main() -> int:
                       "parity_train_step_ms": pstep_ms,
                       "parity_paths_steps_per_s": prate,
                       "scheme_train_step_ms": scheme_ms,
-                      "vg_train_step_ms": vg_ms, "gate": gate}))
+                      "vg_train_step_ms": vg_ms, "mfg": mfg,
+                      "gate": gate}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

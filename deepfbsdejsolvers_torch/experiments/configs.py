@@ -1,0 +1,162 @@
+"""Typed configs of the MFG experiments, with the reference's defaults:
+
+* MFG comparison: mainMFGComparison.py:13-31 (nbNeuron_hat=20, nbNeuron=22,
+  nEpochExt=100, nEpoch=200, batchSize=128, jumpFac=2.16, nbDays=2,
+  lRateY0=1e-3, lRateLoc=1.5e-4, lRateReg=1e-4);
+* MFG PoA: mainMFGPoA.py:18-36 (nEpoch=300, batchSize=64, jumpFac=12,
+  nbDays=1, lRateY0=1e-2, lRateLoc=1e-3, lRateReg=5e-3).
+
+The pricing configs, checkpointing, profiling and data parallelism are not
+ported yet (ROADMAP Queue 1, item 12): ``checkpoint_every``, ``resume``,
+``profile_dir`` and ``data_parallel`` raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+MFG_METHODS = ("Global", "SumMultiStep", "SumLocal", "SumLocalReg",
+               "SumMultiStepReg")
+
+# Reference method name -> scheme key of solvers/mfg.py.
+MFG_METHOD_TO_SCHEME = {
+    "Global": "global",
+    "SumMultiStep": "multistep",
+    "SumLocal": "sumlocal",
+    "SumLocalReg": "sumlocal_reg",
+    "SumMultiStepReg": "multistep_reg",
+}
+
+_ITEM_12 = "is not ported yet (ROADMAP Queue 1, item 12)"
+
+
+@dataclasses.dataclass
+class RunIO:
+    """Where (and whether) to write artifacts."""
+
+    outdir: Optional[str] = None      # None -> no files written
+    metrics_jsonl: bool = True        # write <outdir>/metrics.jsonl
+    save_plots: bool = False          # write figures (needs matplotlib)
+    checkpoint_every: int = 0         # not ported: must stay 0
+    resume: bool = False              # not ported: must stay False
+    profile_dir: Optional[str] = None  # not ported: must stay None
+
+    def __post_init__(self):
+        for what, hit in (("checkpoint_every", self.checkpoint_every),
+                          ("resume", self.resume),
+                          ("profile_dir", self.profile_dir is not None)):
+            if hit:
+                raise NotImplementedError(f"{what} {_ITEM_12}")
+
+
+@dataclasses.dataclass
+class MFGConfigBase:
+    nb_neuron_hat: int = 20
+    nb_neuron: int = 22
+    nb_layer_hat: int = 2
+    nb_layer: int = 2
+    n_epoch_ext: int = 100
+    n_epoch: int = 200
+    batch_size: int = 128
+    raf_coef: int = 1
+    jump_factor: float = 2.16
+    nb_days: int = 2
+    lrate_y0: float = 1e-3
+    lrate_loc: float = 1.5e-4
+    lrate_reg: float = 1e-4
+    couplage: str = "ON"
+    jump_model: str = "stochastic"
+    activation_hat: str = "tanh"
+    activation: str = "tanh"
+    # "icdf" inverts the per-path Cox CDF instead of torch.poisson
+    jump_sampler: str = "exact"
+    scan_chunk: int = 0               # accepted, ignored: no scan to chunk
+    data_parallel: bool = False       # not ported: must stay False
+    # Start the global scheme's (Y0_hat, Y0) at the Picard Monte-Carlo
+    # estimate (MFGSolver.warm_start_y0) instead of unit-normal draws; off
+    # by default, as in the reference.
+    y0_warm_start: bool = False
+    seed: int = 0
+    io: RunIO = dataclasses.field(default_factory=RunIO)
+
+    def __post_init__(self):
+        if self.data_parallel:
+            raise NotImplementedError(f"data_parallel {_ITEM_12}")
+
+    @property
+    def hidden_hat(self) -> Tuple[int, ...]:
+        return (self.nb_neuron_hat,) * self.nb_layer_hat
+
+    @property
+    def hidden(self) -> Tuple[int, ...]:
+        return (self.nb_neuron,) * self.nb_layer
+
+
+@dataclasses.dataclass
+class MFGComparisonConfig(MFGConfigBase):
+    """mainMFGComparison.py defaults (:13-31; price coefficients :108)."""
+
+    methods: Sequence[str] = MFG_METHODS
+    # Frozen-noise evaluation paths: every trained policy is replayed on
+    # one common frozen noise set and its objective cost ± 95% CI reported
+    # (0 = skip).  The reference parses nbSimulation and never uses it
+    # (mainMFGComparison.py:28,41); this is its intended role.
+    n_simulation: int = 10**5
+    pi: float = 0.1
+    p0: float = 6.159423723
+    p1: float = 87.4286117
+    f0: float = 0.0
+    f1: float = 1e4
+
+    def lrate_for(self, method: str) -> float:
+        """Per-method learning rate, the reference's crossed mapping kept:
+        SumMultiStep trains with lRateReg and SumLocalReg with lRateLoc
+        (mainMFGComparison.py:128-135)."""
+        table = {
+            "Global": self.lrate_y0,
+            "SumMultiStep": self.lrate_reg,
+            "SumLocal": self.lrate_loc,
+            "SumMultiStepReg": self.lrate_reg,
+            "SumLocalReg": self.lrate_loc,
+        }
+        return table[method]
+
+
+@dataclasses.dataclass
+class MFGPoAConfig(MFGConfigBase):
+    """mainMFGPoA.py defaults (:18-36) and its case sweep (:189-198)."""
+
+    nb_neuron: int = 20
+    n_epoch_ext: int = 100
+    n_epoch: int = 300
+    batch_size: int = 64
+    jump_factor: float = 12.0
+    nb_days: int = 1
+    lrate_y0: float = 1e-2
+    lrate_loc: float = 1e-3
+    lrate_reg: float = 5e-3
+    method: str = "Global"
+    n_frozen: int = 1000              # frozen-noise trajectory count
+    n_replay: int = 5                 # paths recorded in the figures
+    pi_list: Sequence[float] = (0.0, 0.1, 0.5, 0.95)
+    # case name -> (p0, p1, f0, f1), mainMFGPoA.py:189
+    cases: Dict[str, Tuple[float, float, float, float]] = dataclasses.field(
+        default_factory=lambda: {
+            "with jumps and with dynamic pricing":
+                (6.159423723, 87.4286117, 0.0, 1e4),
+            "with jumps and without pricing": (0.0, 0.0, 0.0, 1e4),
+            "without jumps and with pricing":
+                (6.159423723, 87.4286117, 0.0, 0.0),
+        })
+
+    def lrate_for(self, method: str) -> float:
+        """mainMFGPoA.py:216-225 (no crossed mapping here)."""
+        table = {
+            "Global": self.lrate_y0,
+            "SumMultiStep": self.lrate_loc,
+            "SumLocal": self.lrate_loc,
+            "SumMultiStepReg": self.lrate_reg,
+            "SumLocalReg": self.lrate_reg,
+        }
+        return table[method]

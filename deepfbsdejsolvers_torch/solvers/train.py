@@ -1,8 +1,10 @@
 """Training loop: Adam over ``num_epoch_ext`` outer epochs of ``num_epoch``
 inner gradient steps, with a validation loss and the Y0 read-out once per
 outer epoch.  Adam uses eps=1e-7 (the Keras default the reference trains
-with).  The learning rate is a float or a schedule of the update count
-(``cosine_decay_schedule``, the gates' schedule).  The noise of outer
+with).  The Y0 read-out is a float, or a tuple of floats where ``y0_fn``
+gives a tuple (the MFG solvers' (Y0_hat, Y0) pair).  The learning rate is
+a float or a schedule of the update count (``cosine_decay_schedule``, the
+gates' schedule).  The noise of outer
 epoch k comes from generators seeded by (seed, k), so a run restarted at
 epoch k replays the same noise stream.
 """
@@ -86,24 +88,35 @@ def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     return step
 
 
+def _floats(y0):
+    """A read-out tensor, or a tuple of them, as Python floats."""
+    if isinstance(y0, (tuple, list)):
+        return tuple(_floats(v) for v in y0)
+    return float(y0.detach())
+
+
 def fit(loss_fn: Callable, params, seed: int, lrate: LearningRate,
         num_epoch: int, num_epoch_ext: int,
         val_loss_fn: Optional[Callable] = None,
-        y0_fn: Optional[Callable] = None, verbose: bool = True
+        y0_fn: Optional[Callable] = None, verbose: bool = True,
+        on_epoch: Optional[Callable[[int, dict, Any], None]] = None
         ) -> TrainResult:
     """Train ``params`` (leaf tensors, updated in place) for num_epoch_ext
     outer epochs of num_epoch Adam steps, at the learning rate ``lrate``:
     a float, or a function of the update count over the whole fit.
 
     ``val_loss_fn(params, generator)`` is evaluated without gradients once
-    per outer epoch; ``y0_fn(params)`` extracts the current Y0.  Epoch k
-    draws its steps' noise from the generator seeded by (seed, 1, 2k) and
-    its validation noise from (seed, 1, 2k+1)."""
+    per outer epoch; ``y0_fn(params)`` extracts the current Y0 (a tensor
+    or a tuple of them).  Epoch k draws its steps' noise from the generator
+    seeded by (seed, 1, 2k) and its validation noise from (seed, 1, 2k+1).
+    ``on_epoch(k, {"loss", "y0", "duration_s"}, (params, optimizer,
+    seed))`` fires after each outer epoch: the hook for metrics logging."""
     leaves = param_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
     device = leaves[0].device
-    step = make_step(loss_fn, make_adam(params, lrate), params,
+    optimizer = make_adam(params, lrate)
+    step = make_step(loss_fn, optimizer, params,
                      lrate if callable(lrate) else None)
     y0_hist: List[float] = []
     loss_hist: List[float] = []
@@ -122,12 +135,14 @@ def fit(loss_fn: Callable, params, seed: int, lrate: LearningRate,
                     params, make_generator(device, seed, 1, 2 * iout + 1)))
         else:
             obj = last
-        y0 = (float(y0_fn(params).detach()) if y0_fn is not None
-              else float("nan"))
+        y0 = _floats(y0_fn(params)) if y0_fn is not None else float("nan")
         if verbose:
             print(f" Error {obj:.6g}  elapsed time {duration:5.3f} s  "
                   f"Y0 sofar {y0}  epoch {iout}")
         y0_hist.append(y0)
         loss_hist.append(obj)
         dur_hist.append(duration)
+        if on_epoch is not None:
+            on_epoch(iout, {"loss": obj, "y0": y0, "duration_s": duration},
+                     (params, optimizer, seed))
     return TrainResult(params, y0_hist, loss_hist, duration, dur_hist)

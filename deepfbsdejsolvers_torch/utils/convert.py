@@ -1,9 +1,12 @@
 """Parameters carried between the JAX package and the port.
 
-Both keep the same tree, ``{"uz": {"W": [...], "b": [...], "y0": ()},
-"gam": {"W": [...], "b": [...]}}``, with (in, out) weights, so conversion is
-a leaf-by-leaf copy.  This module takes and gives numpy arrays, the form
-both frameworks read, and imports neither JAX nor the JAX package.
+Both keep the same trees, with (in, out) weights: the pricing solvers'
+``{"uz": {"W": [...], "b": [...], "y0": ()}, "gam": {"W": [...], "b":
+[...]}}`` and the MFG solvers' ``{"hat": {...}, "full": {...}}`` (each
+net ``{"W", "b"}``, with ``"y0"`` in the global scheme), so conversion is
+a leaf-by-leaf copy of any tree.  This module takes and gives numpy
+arrays, the form both frameworks read, and imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ For each gate of the port's runner
 merton_speed, merton_speed_mc and merton_direct) it builds the gate's
 solver at its registered configuration (for an extrapolated gate, the
 solver of its fit at the full coupling; the gate trains two such fits per
+seed; for an MFG row the ``MFGSolver`` of its scheme on its coupled loss,
+for ``mfg_consensus`` that of its global scheme, one of its two fits per
 seed) and takes Adam steps at the gate's batch and peak learning rate: 3 untimed, then ``--steps`` back to back
 between two CUDA events (queued as the runner's ``fit`` queues them, one
 wait at the end), then 2 under ``chip_smoke.profile_steps`` (device busy
@@ -58,34 +60,46 @@ def gate_step(name: str, device: str = "cuda"):
     """(step, generator, batch, updates) of the gate ``name``: one Adam step
     of its solver at its batch and peak rate, on fresh noise each call."""
     from deepfbsdejsolvers_torch.experiments import convergence_gates as cg
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+    from deepfbsdejsolvers_torch.solvers.mfg import MFGSolver
     from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
     from deepfbsdejsolvers_torch.solvers.train import (
         make_adam, make_generator, make_step)
-    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
 
     entry = cg.build_registry()[name]
     args = dict(entry["args"])
-    extrapolated = entry["kind"] == "extrapolated"
-    runner = cg.run_extrapolated_gate if extrapolated else cg.run_gate
+    runner = {"extrapolated": cg.run_extrapolated_gate,
+              "mfg_lq": cg.run_mfg_lq_gate,
+              "mfg_consensus": cg.run_mfg_consensus_gate}.get(entry["kind"],
+                                                              cg.run_gate)
     defaults = inspect.signature(runner).parameters
     budget = {k: args.pop(k, defaults[k].default)
               for k in ("batch", "peak_lr", "steps", "seeds")}
-    fits = 1
-    if extrapolated:
-        # two fits per seed, at aLin/2 and aLin, of the same cost
-        a_lin = args.pop("a_lin", defaults["a_lin"].default)
-        args["model"] = args.pop("make_model")(a_lin)
-        args["scheme"] = "global"
-        fits = 2
-    for key in ("oracle", "tail", "warm_y0"):
-        args.pop(key, None)
-    solver = PricingSolver(args.pop("model"), args.pop("scheme"),
-                           device=device, **args)
+    if entry["kind"].startswith("mfg"):
+        # an LQ row fits its scheme once a seed; the consensus row fits
+        # each of its schemes, and the first (global) is timed
+        schemes = ((args["scheme"],) if "scheme" in args
+                   else args.get("schemes", defaults["schemes"].default))
+        solver = MFGSolver(args["model"], schemes[0], device=device)
+        loss = solver.build_losses(budget["batch"])["coupled"]
+        fits = len(schemes)
+    else:
+        fits = 1
+        if entry["kind"] == "extrapolated":
+            # two fits per seed, at aLin/2 and aLin, of the same cost
+            a_lin = args.pop("a_lin", defaults["a_lin"].default)
+            args["model"] = args.pop("make_model")(a_lin)
+            args["scheme"] = "global"
+            fits = 2
+        for key in ("oracle", "tail", "warm_y0"):
+            args.pop(key, None)
+        solver = PricingSolver(args.pop("model"), args.pop("scheme"),
+                               device=device, **args)
+        loss = solver.build_loss(budget["batch"])
     params = solver.init_params(make_generator("cpu", 0))
     for t in param_leaves(params):
         t.requires_grad_(True)
-    step = make_step(solver.build_loss(budget["batch"]),
-                     make_adam(params, budget["peak_lr"]), params)
+    step = make_step(loss, make_adam(params, budget["peak_lr"]), params)
     return (step, make_generator(device, 1), budget["batch"],
             fits * budget["seeds"] * budget["steps"])
 

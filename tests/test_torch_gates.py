@@ -1,14 +1,18 @@
 """CPU tier of the port's accuracy-gate runner
 (``deepfbsdejsolvers_torch.experiments.convergence_gates``).
 
-The registry holds the JAX package's ten Merton and five Variance-Gamma
-gate rows with the same configuration and budget keys; the first tests hold them, and the smoke
-budgets below, against the JAX gate script and its smoke tier
-(tests/test_gates_smoke.py).  Then every row trains end to end through
+The registry holds the JAX package's ten Merton, five Variance-Gamma and
+six MFG gate rows with the same configuration and budget keys; the first
+tests hold them, and the smoke budgets below, against the JAX gate script
+and its smoke tier (tests/test_gates_smoke.py).  Then every row trains end to end through
 ``run_entry`` at that tier's budget (300 cosine-decayed Adam steps, batch
 256, one seed) and must read out finite and within 5e-2 of the oracle: a
 broken path, a diverging loss or a mis-built table fails, while the real
-1e-3 gates run on the card.  Each row trains in the file that
+1e-3 gates run on the card.  The MFG rows train at that tier's MFG budget
+(120 steps at batch 128, warm start at 2048 paths; the consensus row 60
+steps, its costs on 1024 paths) and are checked as it checks them: an
+``mfg_lq_*`` row's relative error must be finite and at least 0.05 below
+the cold start's 1, the consensus row's spreads finite.  Each row trains in the file that
 ``GATE_FILES`` names (that file's ``GATES``), so that no file trains for
 long on one worker.
 
@@ -55,6 +59,12 @@ PER_GATE = {
         steps=60, compensator=CompensatorSpec(kind="mc", n_mc=500,
                                               x_interp="chebyshev",
                                               n_cheb=64)),
+    **{f"mfg_lq_{scheme}": dict(steps=120, batch=128, seeds=1,
+                                warm_batch=2048)
+       for scheme in ("global", "multistep", "sumlocal", "sumlocal_reg",
+                      "multistep_reg")},
+    "mfg_consensus": dict(steps=60, batch=128, cost_batch=1024, seeds=1,
+                          warm_batch=2048),
 }
 # the rows trained for fewer steps than in the JAX tier (module docstring)
 TRIMMED = ("merton_coupled_direct", "merton_global_extrapolated",
@@ -76,6 +86,12 @@ GATE_FILES = {
     "vg_speed": "test_torch_gates_vg_speed.py",
     "vg_half_coupling": "test_torch_gates_vg_half.py",
     "vg_global_extrapolated": "test_torch_gates_vg_extrapolated.py",
+    "mfg_lq_global": "test_torch_gates_mfg_global.py",
+    "mfg_lq_multistep": "test_torch_gates_mfg_multistep.py",
+    "mfg_lq_multistep_reg": "test_torch_gates_mfg_multistep_reg.py",
+    "mfg_lq_sumlocal": "test_torch_gates_mfg_sumlocal.py",
+    "mfg_lq_sumlocal_reg": "test_torch_gates_mfg_sumlocal_reg.py",
+    "mfg_consensus": "test_torch_gates_mfg_consensus.py",
 }
 GATES = ["merton_speed"]
 
@@ -97,10 +113,22 @@ def port_registry():
 
 def check_gate(name: str) -> None:
     """Train the row ``name`` on the CPU at its smoke budget."""
-    record = cg.run_entry(name, port_registry()[name], device="cpu",
+    entry = port_registry()[name]
+    record = cg.run_entry(name, entry, device="cpu",
                           **{**BUDGET, **PER_GATE.get(name, {})})
-    err = record["abs_error"]
     assert record["device"] == "cpu" and record["seconds"] > 0
+    if entry["kind"] == "mfg_consensus":
+        # does the path run: both schemes trained, the costs finite
+        assert np.isfinite(record["y0_hat_spread"]), (name, record)
+        assert np.isfinite(record["cost_hat_spread"]), (name, record)
+        return
+    if entry["kind"] == "mfg_lq":
+        # progress from the cold nets' ~0 toward the −48.3 oracle
+        err = record["rel_error"]
+        assert np.isfinite(err), (name, record)
+        assert err < record["init_rel_error"] - 0.05, (name, record)
+        return
+    err = record["abs_error"]
     assert np.isfinite(err), (name, record)
     assert err < 5e-2, (name, record)
 
@@ -181,6 +209,25 @@ def test_vg_rows_match_the_jax_registry(jax_cg):
         0.133141, abs=2e-6)
 
 
+def test_mfg_rows_match_the_jax_registry(jax_cg):
+    """The six MFG rows: the same kinds and keys, every model field equal
+    (the profile array for array), the LQ oracle beside the port's."""
+    theirs = {k: v for k, v in jax_cg.build_registry().items()
+              if k.startswith("mfg")}
+    ours = {k: v for k, v in port_registry().items() if k.startswith("mfg")}
+    assert sorted(ours) == sorted(theirs) == sorted(
+        g for g in GATE_FILES if g.startswith("mfg"))
+    for name, entry in theirs.items():
+        assert ours[name]["kind"] == entry["kind"], name
+        mine, want = dict(ours[name]["args"]), dict(entry["args"])
+        a, b = _fields(mine.pop("model")), _fields(want.pop("model"))
+        np.testing.assert_array_equal(a.pop("q_aver"), b.pop("q_aver"))
+        assert a == b, name
+        assert mine == want, name
+    oracle = cg.solve_lq(ours["mfg_lq_global"]["args"]["model"])
+    assert oracle.y0_hat == pytest.approx(-48.320138, abs=1e-6)
+
+
 def test_smoke_budgets_follow_the_jax_tier(jax_cg):
     assert BUDGET == JAX_BUDGET
     theirs = _per_gate(jax_cg)
@@ -214,13 +261,27 @@ def test_main_trains_only_the_seeds_named(monkeypatch, capsys):
         runs.append(seed)
         return 0.271457 + 1e-4 * seed
 
+    def fit_mfg(solver, seed, *args):
+        runs.append(seed)
+        return -48.3201 - 0.1 * seed, -48.3201, None
+
     monkeypatch.setattr(cg, "_fit_y0", fit_y0)
+    monkeypatch.setattr(cg, "_fit_mfg", fit_mfg)
     assert cg.main(["merton_speed", "--device", "cpu", "--seed", "2",
                     "--seed", "0"]) == 0
     assert runs == [2, 0]
     record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert record["seeds"] == [2, 0]
     assert record["y0"] == pytest.approx([0.271657, 0.271457])
+    # an MFG row passes or fails on its own relative bar (multistep 2.5e-2)
+    assert cg.main(["mfg_lq_multistep", "--device", "cpu", "--seed",
+                    "1"]) == 0
+    assert cg.main(["mfg_lq_global", "--device", "cpu", "--seed", "1"]) == 1
+    records = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()]
+    assert [r["seeds"] for r in records] == [[1], [1]]
+    assert records[0]["pass_0.025"] and not records[1]["pass_0.001"]
+    assert records[1]["y0_pairs"] == [pytest.approx([-48.4201, -48.3201])]
 
 
 def test_every_row_trains_in_its_file():

@@ -41,7 +41,10 @@ def test_importing_every_module_loads_no_jax():
     assert len(names) >= 18
     assert {f"deepfbsdejsolvers_torch.{m}" for m in (
         "models.variance_gamma", "ops.interp",
-        "experiments.vg_moment_probe")} <= names
+        "experiments.vg_moment_probe", "models.mfg_smart_grid",
+        "solvers.mfg", "eval.mfg_lq_oracle", "eval.mfg_solutions",
+        "experiments.configs", "experiments.mfg_comparison",
+        "experiments.mfg_poa", "utils.logging")} <= names
 
 
 @pytest.mark.parametrize("path", sorted(
