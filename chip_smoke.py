@@ -6,7 +6,8 @@ Phases, each fatal on failure:
 1. build the CUDA kernels from ``deepfbsdejsolvers_torch/csrc`` with nvcc,
    all sources at once, and print each kernel's registers and spills
    (ptxas) and B2's, B3's and B4's shared memory per block and resident
-   blocks per SM;
+   blocks per SM, the wide B3/B4 (``sweep_wide_*.cu``) per width class
+   32, 64 and 128;
 2. hold each kernel against its plain PyTorch version on ragged batches:
    - B1's (x_N, y_N) and B2's gradients through ``FusedRollout`` at full
      width (hidden 21, N = 50, the real hoisted tables of the Merton speed
@@ -34,6 +35,14 @@ Phases, each fatal on failure:
      2^17 + 37 paths (hidden 21 and, at 2^14 + 37, 8) and on 5000
      Monte-Carlo draws at 2^12 + 37 (``VG_SWEEP_CHECKS``); B4 run twice
      bit for bit in every sweep check;
+   - the wide B3/B4 at hidden 20, 64, 100 and 128 (``WIDE_SWEEP_CHECKS``):
+     the 49-node quadrature and both VG forms on the 96-node set at
+     2^14 + 37 paths, the CLI's wide runs' shapes (the 49-node quadrature
+     on J and the 96-node set on X·J at 2^17 + 37 paths), 5000
+     Monte-Carlo nodes at 2^12 + 37, one node at 37 paths, 17 nodes at
+     1025 and at 2^17 + 37 (the wide B4's blocks walk 4 to 16 tiles); the
+     plain reference summed over node blocks where its grid passes 2^29
+     elements; B4's gradients held leaf by leaf and as a whole;
 3. drive the training paths through their facades at batch 2^17, every
    kernel's launch counter set to 0 just before a path and read just
    after; each kernel must have launched exactly the times the code
@@ -62,7 +71,8 @@ Phases, each fatal on failure:
    time each kernel and its plain version the same way (``kernel_ms``:
    calls back to back between two CUDA events, after a warm-up) at the
    path's shapes; B3/B4 also at 5000 Monte-Carlo nodes and on the two
-   pure-jump forms at the 96-node quadrature;
+   pure-jump forms at the 96-node quadrature; the wide B3/B4 at batch 2^17
+   on the 49- and 96-node sets at each of hidden 20, 64, 100, 128;
 5. drive the smart-grid MFG model (``mfg_phases``), every launch counter
    set to 0 just before and each required to read 0 just after (its
    paths reach no kernel): the comparison model (N = 95, hidden (20, 20) /
@@ -76,15 +86,29 @@ Phases, each fatal on failure:
    within 2e-2 relative of the exact oracle; and the trained global
    policy replayed on 10^5 frozen paths: finite processes and objective,
    and a Price of Anarchy of exactly 1.0 against itself;
-6. run the accuracy gate ``merton_speed_fused`` through the port's gate
+6. drive the experiment CLI (``cli.main``, what ``python -m
+   deepfbsdejsolvers_torch`` runs) in this process, each run's launches
+   held exact (``cli_phases``): ``merton`` and ``vg`` at the reference's
+   defaults (hidden (21, 21), batch 10, the quadrature, the exact
+   samplers, the kernel sweep), one method a run of 2 outer epochs of 2
+   steps, with the sweep each method's records name (``CLI_MERTON``,
+   ``CLI_VG``); ``mfg-compare`` and ``mfg-poa`` at their defaults, cut to
+   1 × 2 steps and 1000 / 100 frozen paths, launching nothing; ``merton
+   --nbNeuron 64`` and ``vg --nbNeuron 128``, Global at batch 2^17, on the
+   wide kernels; ``merton --methods Global --checkpointEvery 1`` 3 outer
+   epochs uncut against 2 and then ``--resume`` to 3 (the third epoch's
+   Y0, loss and params bit for bit, else within 1e-6 and said so);
+   ``--profileDir`` (a non-empty trace) and ``--debugNans`` (finite);
+7. run the accuracy gate ``merton_speed_fused`` through the port's gate
    runner at its registered budget (3 seeds × 2400 steps, batch 8192,
    warm Y0): it must pass (|Y0 − 0.271457| ≤ 1e-3 on every seed) and
    launch B1 and B2 once per step.
 
 The line before the last holds the card's name and power limit
 (nvidia-smi), the one before it the kernels' JSON record (each kernel's
-launches on its main path, and per path under ``launches_by_path``); the
-last line is
+launches on its main path, and per path under ``launches_by_path``; the
+wide pair's rows at the ``merton --nbNeuron 64`` path's shapes, every
+width and node set under ``by_width``); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -95,8 +119,10 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -150,10 +176,62 @@ VG_SWEEP_CHECKS = (
     (8, "quadrature", "two_feature", CHECK_BATCH),
 )
 SCHEME_STEPS, SCHEME_EPOCHS = 2, 2
+# The wide kernels (every other width up to 128): their checks at each of
+# WIDE_WIDTHS, (node set, MC nodes, form, batch): the Merton 49-node
+# quadrature and the VG 96-node set on both pure-jump forms at 2^14 + 37
+# paths; the shapes of the CLI's wide runs (merton --nbNeuron 64 and vg
+# --nbNeuron 128, Global at batch 2^17: the 49 nodes on J, the 96 on X·J)
+# at 2^17 + 37 paths; 5000 Monte-Carlo nodes at 2^12 + 37; and the
+# tiling's edges: one node at 37 paths, 17 nodes (one past a node chunk) at
+# 1025, and 17 nodes at 2^17 + 37, where the wide B4's 264 blocks walk 4
+# (H = 20) to 16 (H = 100, 128) tiles
+WIDE_WIDTHS = (20, 64, 100, 128)
+WIDE_SWEEP_CHECKS = (
+    ("quadrature", 0, "j", CHECK_BATCH),
+    ("quadrature", 0, "x_prop", CHECK_BATCH),
+    ("quadrature", 0, "two_feature", CHECK_BATCH),
+    ("quadrature", 0, "j", 2**17 + 37),
+    ("quadrature", 0, "x_prop", 2**17 + 37),
+    ("mc", N_MC, "j", 2**12 + 37),
+    ("mc", 1, "j", 37),
+    ("mc", 17, "j", 1025),
+    ("mc", 17, "j", 2**17 + 37),
+)
+# The CLI at the reference's defaults, one method a run of 2 outer epochs
+# of 2 steps: per method the sweep its records must name, and B3 and B4
+# launches per training step and B3 per evaluation (as SCHEMES and
+# VG_SCHEMES; Global sweeps at each time step).  The regressions have no
+# sweep: their solver keeps the asked-for "pallas" and launches nothing.
+CLI_EPOCHS, CLI_STEPS = 2, 2
+CLI_MERTON = {
+    "Global": ("pallas", N_STEPS, N_STEPS, N_STEPS),
+    "SumMultiStep1": ("xla", 0, 0, 0),
+    "SumMultiStep2": ("pallas", N_STEPS, N_STEPS, N_STEPS),
+    "SumLocal1": ("xla", 0, 0, 0),
+    "SumLocal2": ("pallas", N_STEPS + 1, N_STEPS, N_STEPS + 1),
+    "SumLocalReg": ("pallas", 0, 0, 0),
+    "SumMultiStepReg": ("pallas", 0, 0, 0),
+}
+CLI_VG = {
+    "Global": ("pallas", N_VG, N_VG, N_VG),
+    "SumMultiStep1": ("pallas", N_VG, N_VG, N_VG),
+    "SumMultiStep2": ("pallas", N_VG, N_VG, N_VG),
+    "SumLocal1": ("pallas", N_VG + 1, N_VG, N_VG + 1),
+    "SumLocal2": ("pallas", N_VG + 1, N_VG, N_VG + 1),
+    "SumLocalReg": ("pallas", 0, 0, 0),
+    "SumMultiStepReg": ("pallas", 0, 0, 0),
+}
+# The CLI at full wide width, Global at batch 2^17: (subcommand, width,
+# steps per epoch); and the resume check's steps per epoch
+CLI_WIDE = (("merton", 64, N_STEPS), ("vg", 128, N_VG))
+RESUME_STEPS = 5
 # The MFG phases: the comparison model's batch, the warm start's paths and
 # Picard iterates (the bar of its LQ check is 2e-2 relative)
 MFG_BATCH, MFG_WARM_BATCH, MFG_PICARD = 2**17, 16384, 24
 GATE = "merton_speed_fused"
+# The plain sweep's checks run over node blocks of at most this many M·B·H
+# grid elements (2 GB a tensor), so its autograd fits the card at H = 128
+PLAIN_GRID = 2**29
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
 # FP32 outside the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -285,6 +363,25 @@ def rollout_inputs(solver, params, batch, gen):
 
 def grad_leaves(gam, y0, tabs):
     return [*gam["W"], *gam["b"], y0, tabs["cc"], tabs["pc"], tabs["zc"]]
+
+
+def ptxas_lines(log: str):
+    """(kernel, line) for each register and spill line of an nvcc -Xptxas
+    -v log, the kernel named from its mangled entry (``fwd_kernel<128>``,
+    ``reduce_partials``)."""
+    fn = "?"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            m = re.search(r"\d+([a-z_]+_kernel|reduce_partials)"
+                          r"(?:I((?:Li\d+E)+))?", entry.group(1))
+            if m is None:
+                fn = entry.group(1)
+            else:
+                widths = re.findall(r"Li(\d+)E", m.group(2) or "")
+                fn = m.group(1) + (f"<{','.join(widths)}>" if widths else "")
+        elif "registers" in line or "spill" in line:
+            yield fn, line.replace("ptxas info    : ", "").strip()
 
 
 def occupancy(name: str, *args: int):
@@ -459,37 +556,70 @@ def sweep_inputs(hidden: int, node_set: str, batch: int, tag: int,
     return args, g
 
 
-def check_sweep(args, g) -> dict:
-    """Phase 2: B3 against ``sweep_plain``, B4 against autograd of it, on
-    the same inputs; B4 twice bit for bit."""
+def plain_sweep_and_grads(args, g, max_elems: int = PLAIN_GRID):
+    """``sweep_plain``'s output and autograd's gradients of (x, a, c, W1,
+    b1, v) for the cotangent ``g``, over node blocks of at most
+    ``max_elems`` M·B·H grid elements each (one block below that): the
+    sweep is a sum over nodes, so the blocks' outputs and their x, W1, b1
+    gradients add up and their node gradients stack."""
     from deepfbsdejsolvers_torch.ops import sweep as S
 
+    x, a, c, w1, b1, v = args
+    m, h = a.shape
+    step = max(1, max_elems // (x.shape[0] * h))
+    out, parts = 0.0, []
+    for k in range(0, m, step):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (x, a[k:k + step], c[k:k + step], w1, b1,
+                            v[k:k + step])]
+        o = S.sweep_plain(*leaves)
+        parts.append(torch.autograd.grad(o, leaves, g))
+        out = out + o.detach()
+    dx, dw1, db1 = (sum(p[i] for p in parts) for i in (0, 3, 4))
+    da, dc, dv = (torch.cat([p[i] for p in parts]) for i in (1, 2, 5))
+    return out, (dx, da, dc, dw1, db1, dv)
+
+
+def check_sweep(args, g) -> dict:
+    """Phase 2: B3 against ``sweep_plain``, B4 against autograd of it, on
+    the same inputs, through the kernel pair of the head's width (the
+    specialised B3/B4 at 8 and 21, the wide pair elsewhere); B4's
+    gradients held as a whole and each leaf (x, a, c, W1, b1, v) on its
+    own, so a wrong leaf that the global norm would hide fails; B4 twice
+    bit for bit."""
+    from deepfbsdejsolvers_torch.ops import sweep as S
+
+    fwd, bwd = S.sweep_kernels(args[1].shape[1])
     with torch.no_grad():
-        out_k = S.b3_forward(*args)
-        out_p = S.sweep_plain(*args)
+        out_k = fwd(*args)
+    out_p, gp = plain_sweep_and_grads(args, g)
     fwd_err = float((out_k - out_p).abs().max())
     fwd_rel = fwd_err / float(out_p.abs().max())
     print(f"B3 vs plain: max|Δ out| {fwd_err:.3e}, relative to max|out| "
           f"{fwd_rel:.3e} (tol {SWEEP_REL_TOL})")
     if not (math.isfinite(fwd_rel) and fwd_rel <= SWEEP_REL_TOL):
         fail("B3 disagrees with sweep_plain")
-    gk = S.b4_backward(*args, g)
-    gk2 = S.b4_backward(*args, g)
+    gk = bwd(*args, g)
+    gk2 = bwd(*args, g)
     same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
-    leaves = [t.clone().requires_grad_(True) for t in args]
-    gp = torch.autograd.grad(S.sweep_plain(*leaves), leaves, g)
     num = math.sqrt(sum(float(torch.sum((a - b) ** 2))
                         for a, b in zip(gk, gp)))
     den = math.sqrt(sum(float(torch.sum(b ** 2)) for b in gp))
     grad_rel = num / den
     grad_abs = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
-    each = ", ".join(f"{n} {float((a - b).norm() / b.norm()):.1e}" for n, a, b
-                     in zip(("x", "a", "c", "W1", "b1", "v"), gk, gp))
+    leaf_rel = {n: float((a - b).norm() / b.norm()) for n, a, b
+                in zip(("x", "a", "c", "W1", "b1", "v"), gk, gp)}
+    each = ", ".join(f"{n} {r:.1e}" for n, r in leaf_rel.items())
     print(f"B4 vs autograd of plain: grad global-norm rel {grad_rel:.3e} "
-          f"(tol {GRAD_REL_TOL}; {each}), max abs {grad_abs:.3e}; rerun "
-          f"bit-identical: {same}")
+          f"(tol {GRAD_REL_TOL}, also per leaf: {each}), max abs "
+          f"{grad_abs:.3e}; rerun bit-identical: {same}")
     if not (math.isfinite(grad_rel) and grad_rel <= GRAD_REL_TOL):
         fail("B4 gradients disagree with autograd of sweep_plain")
+    off = [n for n, r in leaf_rel.items()
+           if not (math.isfinite(r) and r <= GRAD_REL_TOL)]
+    if off:
+        fail(f"B4's gradients of {', '.join(off)} disagree with autograd "
+             "of sweep_plain")
     if not same:
         fail("two B4 runs on the same inputs differ")
     return {"B3": {"max_abs_err": fwd_err, "rel_err": fwd_rel},
@@ -497,7 +627,8 @@ def check_sweep(args, g) -> dict:
 
 
 def time_sweep(args, g, node_block=None) -> dict:
-    """B3 and B4 against their plain versions at these inputs' shapes: B3
+    """B3 and B4 (the pair of the head's width) against their plain
+    versions at these inputs' shapes: B3
     against ``sweep_plain`` without autograd, B4 against autograd's
     backward of it (one graph, run again and again).  With ``node_block``
     the plain versions run over blocks
@@ -521,9 +652,9 @@ def time_sweep(args, g, node_block=None) -> dict:
                        for s in blocks)
         return sum(one(s) for s in blocks)
 
-    out = {"B3": {"ms": kernel_ms(lambda: S.b3_forward(*args), reps=reps)},
-           "B4": {"ms": kernel_ms(lambda: S.b4_backward(*args, g),
-                                  reps=reps)}}
+    fwd, bwd = S.sweep_kernels(args[1].shape[1])
+    out = {"B3": {"ms": kernel_ms(lambda: fwd(*args), reps=reps)},
+           "B4": {"ms": kernel_ms(lambda: bwd(*args, g), reps=reps)}}
     with torch.no_grad():
         out["B3"]["plain_ms"] = kernel_ms(lambda: plain(*args),
                                           reps=max(1, reps // 3))
@@ -801,6 +932,161 @@ def mfg_phases(counters) -> dict:
     return out
 
 
+def cli_run(label: str, argv, counters, want: dict, outdir: str):
+    """Phase 6: one run of the experiment CLI in this process (``cli.main``,
+    what ``python -m deepfbsdejsolvers_torch`` calls) on the card, writing
+    into ``outdir``, every launch counter set to 0 just before and read just
+    after; fails unless it exits 0 and each kernel launched exactly
+    ``want`` times (a kernel absent from ``want``: never).  Returns the
+    run's metrics records and seconds."""
+    from deepfbsdejsolvers_torch.experiments import cli
+    from deepfbsdejsolvers_torch.utils.logging import read_jsonl
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main([*argv, "--outdir", outdir, "--quiet"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counters.items()}
+    want = {k: want.get(k, 0) for k in counters}
+    print(f"CLI {label}: `{' '.join(argv)}` exit {rc}, launches "
+          f"{ {k: n for k, n in launched.items() if n} }, {seconds:.1f} s")
+    if rc != 0:
+        fail(f"CLI {label} exited {rc}")
+    if launched != want:
+        fail(f"CLI {label} launched {launched}, the code implies {want}")
+    path = os.path.join(outdir, "metrics.jsonl")
+    return (read_jsonl(path) if os.path.isfile(path) else []), seconds
+
+
+def cli_method_runs(cmd: str, table: dict, counters, tmp: str) -> dict:
+    """Phase 6: ``cmd`` (merton or vg) at the reference's defaults, one
+    method a run, cut to 2 outer epochs of 2 steps: each method's exact
+    launches, the sweep every one of its records names, a finite Y0."""
+    out = {}
+    for method, (impl, b3, b4, b3_eval) in table.items():
+        kernels = {"B3": CLI_EPOCHS * (CLI_STEPS * b3 + b3_eval),
+                   "B4": CLI_EPOCHS * CLI_STEPS * b4}
+        records, seconds = cli_run(
+            f"{cmd} {method}",
+            [cmd, "--methods", method, "--nEpochExt", str(CLI_EPOCHS),
+             "--nEpoch", str(CLI_STEPS)], counters, kernels,
+            os.path.join(tmp, f"{cmd}_{method}"))
+        mine = [r for r in records if r.get("method") == method]
+        impls = {r["sweep_impl"] for r in mine}
+        done = [r for r in mine if r.get("event") == "method_done"]
+        if impls != {impl} or len(done) != 1:
+            fail(f"CLI {cmd} {method}: records name sweeps {impls}, "
+                 f"expected {impl!r}")
+        if not math.isfinite(done[0]["y0"]):
+            fail(f"CLI {cmd} {method}: Y0 {done[0]['y0']}")
+        out[method] = {"sweep_impl": impl, "y0": done[0]["y0"],
+                       "seconds": seconds, **kernels}
+    return out
+
+
+def _epoch_record(records, epoch: int) -> dict:
+    """The last record of outer epoch ``epoch`` in a metrics log."""
+    return [r for r in records if r.get("epoch") == epoch][-1]
+
+
+def cli_phases(counters, tmp: str) -> dict:
+    """Phase 6: the experiment CLI on the card.  The four subcommands at
+    the reference's defaults with cut epochs (merton and vg one method a
+    run, the MFG ones with cut --nbSimulation and --nFrozen, launching no
+    kernel); merton --nbNeuron 64 and vg --nbNeuron 128 at batch 2^17 on
+    the wide kernels; a run resumed from its checkpoints against the uncut
+    run; --profileDir; --debugNans."""
+    from deepfbsdejsolvers_torch.utils.checkpointing import (
+        restore_checkpoint)
+
+    t_start = time.perf_counter()
+    out = {"merton": cli_method_runs("merton", CLI_MERTON, counters, tmp),
+           "vg": cli_method_runs("vg", CLI_VG, counters, tmp)}
+    cut = ["--nEpochExt", "1", "--nEpoch", "2"]
+    for cmd, extra in (("mfg-compare", ["--nbSimulation", "1000"]),
+                       ("mfg-poa", ["--nFrozen", "100"])):
+        records, seconds = cli_run(cmd, [cmd, *cut, *extra], counters, {},
+                                   os.path.join(tmp, cmd))
+        out[cmd] = {"seconds": seconds, "records": len(records)}
+
+    for cmd, width, n in CLI_WIDE:
+        kernels = {"B3w": CLI_EPOCHS * (CLI_STEPS + 1) * n,
+                   "B4w": CLI_EPOCHS * CLI_STEPS * n}
+        records, seconds = cli_run(
+            f"{cmd} wide", [cmd, "--nbNeuron", str(width), "--methods",
+                            "Global", "--batchSize", str(TRAIN_BATCH),
+                            "--nEpochExt", str(CLI_EPOCHS), "--nEpoch",
+                            str(CLI_STEPS)], counters, kernels,
+            os.path.join(tmp, f"{cmd}_wide"))
+        done = [r for r in records if r.get("event") == "method_done"][0]
+        if done["sweep_impl"] != "pallas" or not math.isfinite(done["y0"]):
+            fail(f"CLI {cmd} --nbNeuron {width}: {done}")
+        out[f"{cmd}_{width}"] = {"y0": done["y0"], "seconds": seconds,
+                                 **kernels}
+
+    # resume: 3 outer epochs uncut, against 2 then --resume to 3
+    base = ["merton", "--methods", "Global", "--nEpoch", str(RESUME_STEPS),
+            "--checkpointEvery", "1"]
+    per_epoch = {"B3": (RESUME_STEPS + 1) * N_STEPS,
+                 "B4": RESUME_STEPS * N_STEPS}
+    times = lambda k: {name: k * n for name, n in per_epoch.items()}
+    dir_a, dir_b = os.path.join(tmp, "uncut"), os.path.join(tmp, "resumed")
+    rec_a, _ = cli_run("uncut", base + ["--nEpochExt", "3"], counters,
+                       times(3), dir_a)
+    cli_run("two epochs", base + ["--nEpochExt", "2"], counters, times(2),
+            dir_b)
+    rec_b, _ = cli_run("resumed", base + ["--nEpochExt", "3", "--resume"],
+                       counters, times(1), dir_b)
+    ra, rb = _epoch_record(rec_a, 2), _epoch_record(rec_b, 2)
+    state = [restore_checkpoint(os.path.join(d, "ckpt", "Global", "step_2"))
+             for d in (dir_a, dir_b)]
+    same_params = all(torch.equal(x, y) for x, y in
+                      zip(state[0]["params"], state[1]["params"]))
+    same = ra["y0"] == rb["y0"] and ra["loss"] == rb["loss"] and same_params
+    rel = max(abs(ra[k] - rb[k]) / abs(ra[k]) for k in ("y0", "loss"))
+    print(f"resume: third epoch uncut (Y0 {ra['y0']!r}, loss "
+          f"{ra['loss']!r}), resumed (Y0 {rb['y0']!r}, loss "
+          f"{rb['loss']!r}); params equal {same_params}; bit-identical "
+          f"{same}" + ("" if same else f", NOT bit-identical: rel {rel:.3e}"
+                       " (tol 1e-6)"))
+    if not same and not rel <= 1e-6:
+        fail("the resumed run left the uncut run's third epoch")
+    out["resume"] = {"bit_identical": same, "rel": rel, "y0": ra["y0"],
+                     "loss": ra["loss"]}
+
+    trace_dir = os.path.join(tmp, "trace")
+    cli_run("profile", ["merton", "--methods", "Global", *cut,
+                        "--profileDir", trace_dir], counters,
+            {"B3": 3 * N_STEPS, "B4": 2 * N_STEPS},
+            os.path.join(tmp, "profiled"))
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    sizes = [os.path.getsize(f) for f in traces]
+    if not traces or min(sizes) == 0:
+        fail(f"--profileDir wrote {traces} of sizes {sizes}")
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    n_kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"profile: {len(traces)} trace of {sizes[0]} bytes, "
+          f"{len(events)} events, {n_kernels} device kernels")
+    out["profile"] = {"bytes": sizes[0], "events": len(events),
+                      "kernels": n_kernels}
+
+    records, _ = cli_run("NaN guard", ["merton", "--methods", "Global", *cut,
+                                       "--debugNans"], counters,
+                         {"B3": 3 * N_STEPS, "B4": 2 * N_STEPS},
+                         os.path.join(tmp, "nan_guard"))
+    y0 = _epoch_record(records, 0)["y0"]
+    if not math.isfinite(y0) or torch.is_anomaly_enabled():
+        fail(f"--debugNans: Y0 {y0}, anomaly mode left "
+             f"{torch.is_anomaly_enabled()}")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"CLI phases: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -823,16 +1109,23 @@ def main() -> int:
     built = _build.build()
     print(f"build: {sorted(built) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
+    ptxas = {}
     for name in _build.KERNEL_SOURCES:
         log = _build.ptxas_log(_build.library_path(name))
         if log.is_file():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
-    for name, pieces in (("rollout_bwd", (PIECES,)), ("sweep_fwd", ()),
-                         ("sweep_bwd", ())):
-        for hidden in (HIDDEN, 8):
+            for fn, line in ptxas_lines(log.read_text()):
+                print(f"  {name} {fn}: {line}")
+                ptxas.setdefault(f"{name} {fn}", []).append(line)
+    occupancy_by = {}
+    for name, widths, pieces in (
+            ("rollout_bwd", (HIDDEN, 8), (PIECES,)),
+            ("sweep_fwd", (HIDDEN, 8), ()), ("sweep_bwd", (HIDDEN, 8), ()),
+            ("sweep_wide_fwd", (32, 64, 128), ()),
+            ("sweep_wide_bwd", (32, 64, 128), ())):
+        for hidden in widths:
             smem, blocks = occupancy(name, hidden, *pieces)
+            occupancy_by[f"{name}<{hidden}>"] = {"smem": smem,
+                                                 "blocks_per_sm": blocks}
             print(f"  {name}<{hidden}>: {smem} bytes of shared memory per "
                   f"block, {blocks} blocks per SM")
 
@@ -883,11 +1176,26 @@ def main() -> int:
         result = check_sweep(*sweep_inputs(hidden, node_set, batch, tag,
                                            form=form))
         vg_check.setdefault(form, result)
+    # the wide kernels at every width class, on the same node sets and
+    # edges; results by (H, case)
+    wide_check = {}
+    for h in WIDE_WIDTHS:
+        for tag, case in enumerate(WIDE_SWEEP_CHECKS, start=100 + 10 * h):
+            node_set, n_mc, form, batch = case
+            nodes = f"{n_mc} MC" if node_set == "mc" else (
+                f"{N_VG_QUAD}-node VG" if form != "j" else "quadrature")
+            print(f"wide sweep check at H={h}, {nodes} nodes, form {form}, "
+                  f"B={batch} (B4: {S.b4_wide_blocks(batch, h)} blocks walk "
+                  f"{-(-batch // S.wide_tile(h))} tiles):")
+            result = check_sweep(*sweep_inputs(h, node_set, batch, tag,
+                                               n_mc or N_MC, form=form))
+            wide_check[(h, case)] = result
     op = R.FusedRolloutOp(model, HIDDEN, n_pieces=PIECES)
 
     # 3. the main paths: training through the facade
     counters = {"B1": R.b1_forward, "B2": R.b2_backward,
-                "B3": S.b3_forward, "B4": S.b4_backward}
+                "B3": S.b3_forward, "B4": S.b4_backward,
+                "B3w": S.b3_wide_forward, "B4w": S.b4_wide_backward}
     print("speed path (hoisted tables, fused rollout):")
     trainer, launches = train_path(dict(kw, math_model=model),
                                    {"B1": 1, "B2": 1}, {"B1": 1}, counters)
@@ -953,11 +1261,34 @@ def main() -> int:
                                form=form)
         times_vg[form] = time_sweep(args, g)
         del args, g
+    # the wide kernels at the CLI's batch, on the Merton and VG node sets
+    times_wide = {}
+    for h in WIDE_WIDTHS:
+        for m, form in ((N_QUAD, "j"), (N_VG_QUAD, "x_prop")):
+            args, g = sweep_inputs(h, "quadrature", TRAIN_BATCH, 13, form=form)
+            times_wide[(h, m)] = time_sweep(args, g)
+            del args, g
+            print(f"wide kernels at H={h}, M={m}, B={TRAIN_BATCH}: "
+                  + ", ".join(f"{k} {v['ms']:.4f} ms (plain "
+                              f"{v['plain_ms']:.3f})"
+                              for k, v in times_wide[(h, m)].items()))
 
     # 5. the smart-grid MFG model: no kernel on its paths
     mfg = mfg_phases(counters)
 
-    # 6. one accuracy gate through the port's runner
+    # 6. the experiment CLI, in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_out = cli_phases(counters, tmp)
+    by_path["cli_merton"] = {
+        k: sum(v.get(k, 0) for v in cli_out["merton"].values())
+        for k in counters}
+    by_path["cli_vg"] = {k: sum(v.get(k, 0) for v in cli_out["vg"].values())
+                         for k in counters}
+    for cmd, width, _ in CLI_WIDE:
+        by_path[f"cli_{cmd}_{width}"] = {
+            k: cli_out[f"{cmd}_{width}"].get(k, 0) for k in counters}
+
+    # 7. one accuracy gate through the port's runner
     print(f"gate {GATE} (3 seeds × 2400 steps, batch 8192):")
     entry = gates.build_registry()[GATE]
     for fn in counters.values():
@@ -965,7 +1296,7 @@ def main() -> int:
     gate = gates.run_entry(GATE, entry)
     by_path[GATE] = {k: fn.launches for k, fn in counters.items()}
     updates = entry["args"]["seeds"] * entry["args"]["steps"]
-    want = {"B1": updates, "B2": updates, "B3": 0, "B4": 0}
+    want = dict({k: 0 for k in counters}, B1=updates, B2=updates)
     print(f"gate {GATE}: launches {by_path[GATE]}")
     if not gate["pass_1e-3"]:
         fail(f"gate {GATE} failed: max |Y0 − oracle| {gate['abs_error']}")
@@ -1029,6 +1360,46 @@ def main() -> int:
                       f"{times_vg[form][k]['plain_ms']:.3f} ms, bound "
                       f"{vg_ms_k:.4f} ms by {vg_by})")
         record.append(entry)
+    # the wide kernels: the main row at the merton --nbNeuron 64 path's
+    # shapes (its error from the check at them), every width class and
+    # both node sets under by_width (errors on the 49 nodes at 2^14 + 37)
+    wide_paths = [f"cli_{cmd}_{width}" for cmd, width, _ in CLI_WIDE]
+    for k, src, tpu, fn in (
+            ("B3w", "sweep_wide_fwd", "pallas_sweep.py:179", "fwd_kernel"),
+            ("B4w", "sweep_wide_bwd", "pallas_sweep.py:199", "bwd_kernel")):
+        kind = k[:2]
+        by_width = {}
+        for h in WIDE_WIDTHS:
+            hp = S.wide_class(h)
+            err = wide_check[(h, WIDE_SWEEP_CHECKS[0])][kind]
+            row = {"HP": hp, "max_abs_err": err["max_abs_err"],
+                   "rel_err": err["rel_err"],
+                   "ptxas": ptxas.get(f"{src} {fn}<{hp}>"),
+                   **occupancy_by[f"{src}<{hp}>"]}
+            for m in (N_QUAD, N_VG_QUAD):
+                b_ms, b_by = bound(kind, m, TRAIN_BATCH, h, PIECES)
+                t = times_wide[(h, m)][kind]
+                row[f"M{m}"] = {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                                "bound_ms": b_ms, "bound_by": b_by}
+                print(f"{k} at H={h} (HP {hp}), M={m}: {t['ms']:.4f} ms "
+                      f"(plain {t['plain_ms']:.3f} ms, bound {b_ms:.4f} ms "
+                      f"by {b_by})")
+            by_width[h] = row
+        main_row = by_width[64][f"M{N_QUAD}"]
+        main_err = wide_check[(64, ("quadrature", 0, "j", 2**17 + 37))][kind]
+        record.append({
+            "name": f"{k} {src}", "route": "cuda",
+            "source": f"deepfbsdejsolvers_torch/csrc/{src}.cu",
+            "replaces": f"deepfbsdejsolvers_tpu/ops/{tpu}",
+            "launches": sum(by_path[p][k] for p in wide_paths),
+            "launches_by_path": {p: by_path[p][k] for p in wide_paths},
+            "max_abs_err": main_err["max_abs_err"],
+            "rel_err": main_err["rel_err"], "check": "pass",
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "shape": {"M": N_QUAD, "B": TRAIN_BATCH, "H": 64},
+            "by_width": by_width})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": record, "train_step_ms": step_ms,
                       "paths_steps_per_s": rate,
@@ -1036,7 +1407,7 @@ def main() -> int:
                       "parity_paths_steps_per_s": prate,
                       "scheme_train_step_ms": scheme_ms,
                       "vg_train_step_ms": vg_ms, "mfg": mfg,
-                      "gate": gate}))
+                      "cli": cli_out, "gate": gate}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

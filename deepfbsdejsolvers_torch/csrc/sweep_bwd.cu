@@ -55,7 +55,6 @@ constexpr int WARPS = THREADS / WARP;
 constexpr int WARP_PATHS = WARP * BWD_PATHS;     // paths per warp
 constexpr int BWD_TILE = THREADS * BWD_PATHS;    // paths per tile
 constexpr int LDJ = WARP_PATHS + 4;  // staging row, 4 floats off a bank line
-constexpr int REDUCE_THREADS = 256;
 
 // Which part of h1ᵀ·dz2 a lane of a warp adds up: NRT × NCT micro-tiles of
 // RM rows (h1's H rows, its row of ones, zero rows) by CM columns (dz2's H
@@ -360,17 +359,6 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
         s += dw[slot + w * WARP + lane_q + T::NRT * T::NCT * kk];
     my_part[q] = s;
   }
-}
-
-// out[q] = sum over blocks of part[block][q], in block order.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-reduce_partials(const float* __restrict__ part, float* __restrict__ out,
-                int n_blocks, int n_out) {
-  const int q = blockIdx.x * REDUCE_THREADS + threadIdx.x;
-  if (q >= n_out) return;
-  float s = 0.0f;
-  for (int k = 0; k < n_blocks; ++k) s += __ldg(part + (size_t)k * n_out + q);
-  out[q] = s;
 }
 
 // The shared memory above 48 KB needs the kernel's opt-in before a launch.

@@ -1,7 +1,8 @@
 // Arithmetic shared by the compensator-sweep kernels B3 (sweep_fwd.cu) and
 // B4 (sweep_bwd.cu): staging the head's second layer and a chunk of node rows
 // in shared memory, and one node's hidden layers for several paths per
-// thread in registers.
+// thread in registers; and the fixed-order sum of B4's per-block partials,
+// which the wide kernels (sweep_wide.cuh) share.
 //
 // The sweep (ops/sweep.py) is, per path b,
 //   out_b = Σ_m Σ_k v[m,k]·tanh(Σ_h tanh(x_b·a[m,h] + c[m,h])·W1[h,k] + b1[k])
@@ -139,6 +140,19 @@ __device__ __forceinline__ void second_layer_quad(const float* sm,
       z[p][3] += h1[p][h] * w4.w;
     }
   }
+}
+
+constexpr int REDUCE_THREADS = 256;
+
+// out[q] = sum over blocks of part[block][q], in block order.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+reduce_partials(const float* __restrict__ part, float* __restrict__ out,
+                int n_blocks, int n_out) {
+  const int q = blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (q >= n_out) return;
+  float s = 0.0f;
+  for (int k = 0; k < n_blocks; ++k) s += __ldg(part + (size_t)k * n_out + q);
+  out[q] = s;
 }
 
 }  // namespace sweep

@@ -1,21 +1,38 @@
-"""Typed configs of the MFG experiments, with the reference's defaults:
+"""Typed experiment configs with the reference's defaults:
 
+* Merton: mainMerton.py:13-23 (nbNeuron=21, nbLayer=2, nEpochExt=120,
+  nEpoch=100, batchSize=10, lRateY0=4e-4, lRateLoc=3e-4, lRateReg=3e-4,
+  aLin=0.1, limit=30);
+* VG: mainVG.py:12-22 (lRateY0=5e-4, lRateLoc=3e-4, lRateReg=1.5e-4);
 * MFG comparison: mainMFGComparison.py:13-31 (nbNeuron_hat=20, nbNeuron=22,
   nEpochExt=100, nEpoch=200, batchSize=128, jumpFac=2.16, nbDays=2,
   lRateY0=1e-3, lRateLoc=1.5e-4, lRateReg=1e-4);
 * MFG PoA: mainMFGPoA.py:18-36 (nEpoch=300, batchSize=64, jumpFac=12,
   nbDays=1, lRateY0=1e-2, lRateLoc=1e-3, lRateReg=5e-3).
 
-The pricing configs, checkpointing, profiling and data parallelism are not
-ported yet (ROADMAP Queue 1, item 12): ``checkpoint_every``, ``resume``,
-``profile_dir`` and ``data_parallel`` raise NotImplementedError.
+Data parallelism is not ported yet (ROADMAP Queue 1, item 12):
+``data_parallel=True`` raises NotImplementedError; so does a
+``compute_dtype`` other than None (item 13), as ``PricingSolver`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Dict, Optional, Sequence, Tuple
 
+PRICING_METHODS = ("Global", "SumMultiStep1", "SumMultiStep2", "SumLocal1",
+                   "SumLocal2", "SumLocalReg", "SumMultiStepReg")
+# Reference method name -> scheme key of solvers/pricing.py.
+PRICING_METHOD_TO_SCHEME = {
+    "Global": "global",
+    "SumMultiStep1": "multistep1",
+    "SumMultiStep2": "multistep2",
+    "SumLocal1": "sumlocal1",
+    "SumLocal2": "sumlocal2",
+    "SumLocalReg": "sumlocal_reg",
+    "SumMultiStepReg": "multistep_reg",
+}
 MFG_METHODS = ("Global", "SumMultiStep", "SumLocal", "SumLocalReg",
                "SumMultiStepReg")
 
@@ -33,21 +50,113 @@ _ITEM_12 = "is not ported yet (ROADMAP Queue 1, item 12)"
 
 @dataclasses.dataclass
 class RunIO:
-    """Where (and whether) to write artifacts."""
+    """Where (and whether) to write artifacts.  The pricing pipeline
+    checkpoints and resumes; the MFG pipelines, as the JAX package's, take
+    ``checkpoint_every`` and ``resume``, write no checkpoint and say so
+    on stderr."""
 
     outdir: Optional[str] = None      # None -> no files written
     metrics_jsonl: bool = True        # write <outdir>/metrics.jsonl
     save_plots: bool = False          # write figures (needs matplotlib)
-    checkpoint_every: int = 0         # not ported: must stay 0
-    resume: bool = False              # not ported: must stay False
-    profile_dir: Optional[str] = None  # not ported: must stay None
+    checkpoint_every: int = 0         # epochs between checkpoints (0 = off)
+    resume: bool = False              # resume from the latest checkpoint
+    profile_dir: Optional[str] = None  # torch.profiler trace directory
+
+    def warn_no_checkpoint(self, pipeline: str) -> None:
+        """Say on stderr that ``pipeline`` (one that writes and restores no
+        checkpoint) ignores ``checkpoint_every`` and ``resume``."""
+        asked = [f for f, on in (("checkpoint_every", self.checkpoint_every),
+                                 ("resume", self.resume)) if on]
+        if asked:
+            print(f"{pipeline}: {' and '.join(asked)} asked for; this "
+                  "pipeline writes and restores no checkpoint, so it trains "
+                  "from scratch", file=sys.stderr)
+
+
+@dataclasses.dataclass
+class PricingConfigBase:
+    """Shared knobs of the two pricing experiments (the JAX package's
+    fields and defaults, so that a configuration carries across)."""
+
+    nb_neuron: int = 21
+    nb_layer: int = 2
+    n_epoch_ext: int = 120
+    n_epoch: int = 100
+    batch_size: int = 10
+    lrate_y0: float = 4e-4
+    lrate_loc: float = 3e-4
+    lrate_reg: float = 3e-4
+    activation: str = "tanh"
+    a_lin: float = 0.1
+    methods: Sequence[str] = PRICING_METHODS
+    compensator: str = "quadrature"   # "quadrature" | "mc" (reference: mc)
+    n_mc: int = 5000
+    n_poisson_max: int = 6            # quadrature sizing (Merton)
+    n_hermite: int = 8
+    n_laguerre: int = 12              # quadrature sizing (VG)
+    compute_dtype: Optional[str] = None   # not ported: must stay None
+    # "pallas" sweeps the Γ head by the CUDA kernels B3/B4 where the
+    # method's head takes them (experiments/pricing.py chooses per method)
+    sweep_impl: str = "xla"
+    jump_sampler: str = "exact"       # "icdf" = truncated inverse-CDF sampler
+    x_interp: str = "direct"          # "chebyshev" = collocated compensator
+    n_cheb: int = 64
+    # Hoist the collocation tables out of the time loop (the speed path;
+    # requires x_interp="chebyshev")
+    hoist: bool = False
+    hoist_interp: str = "piecewise"   # "clenshaw" | "piecewise"
+    scan_chunk: int = 0               # accepted, ignored: no scan to chunk
+    price_mode: str = "series"        # "chebyshev" = collocated pricer
+    # The reference trains the two Y-only regression schemes on 1000x the
+    # nominal batch inside the solver (SolversJumpDiff.py:435,503), kept as
+    # an explicit knob instead of a hidden multiplier.
+    reg_batch_multiplier: int = 1000
+    data_parallel: bool = False       # not ported: must stay False
+    # Report Y0 as the mean of the last k outer-epoch read-outs (1 = the
+    # reference's last one).
+    y0_tail_avg: int = 1
+    # Start the global scheme's trainable Y0 at an oracle-free Monte-Carlo
+    # payoff estimate instead of a unit-normal draw; off by default.
+    y0_warm_start: bool = False
+    seed: int = 0
+    io: RunIO = dataclasses.field(default_factory=RunIO)
 
     def __post_init__(self):
-        for what, hit in (("checkpoint_every", self.checkpoint_every),
-                          ("resume", self.resume),
-                          ("profile_dir", self.profile_dir is not None)):
-            if hit:
-                raise NotImplementedError(f"{what} {_ITEM_12}")
+        if self.data_parallel:
+            raise NotImplementedError(f"data_parallel {_ITEM_12}")
+        if self.compute_dtype is not None:
+            raise NotImplementedError(
+                f"compute_dtype {self.compute_dtype!r} is not ported yet "
+                "(ROADMAP Queue 1, item 13)")
+
+    @property
+    def hidden(self) -> Tuple[int, ...]:
+        return (self.nb_neuron,) * self.nb_layer
+
+    def lrate_for(self, method: str) -> float:
+        """Per-method learning rate (mainMerton.py:105-118)."""
+        if method == "Global":
+            return self.lrate_y0
+        if method in ("SumLocalReg", "SumMultiStepReg"):
+            return self.lrate_reg
+        return self.lrate_loc
+
+
+@dataclasses.dataclass
+class MertonConfig(PricingConfigBase):
+    """mainMerton.py defaults (:13-23, params :57)."""
+
+    limit: int = 30
+
+
+@dataclasses.dataclass
+class VGConfig(PricingConfigBase):
+    """mainVG.py defaults (:12-22, params :54)."""
+
+    lrate_y0: float = 5e-4
+    lrate_loc: float = 3e-4
+    lrate_reg: float = 1.5e-4
+    pricer: str = "fft"               # "fft" | "invfourier"
 
 
 @dataclasses.dataclass

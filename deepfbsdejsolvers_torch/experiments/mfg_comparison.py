@@ -6,8 +6,9 @@ replays every trained policy on one common frozen noise set and reports
 its objective cost.  Artifacts under ``io.outdir``: ``metrics.jsonl``, the
 histories as ``hY0List.csv`` / ``Y0List.csv`` (the files the reference's
 plotting stage reloads, mainMFGComparison.py:146-147, and nothing wrote),
-and with ``io.save_plots`` the convergence figure (matplotlib, imported
-only then).  Runs on the card unless ``device="cpu"`` is asked for.
+with ``io.save_plots`` the convergence figure (matplotlib, imported
+only then), and with ``io.profile_dir`` a ``torch.profiler`` trace of the
+training.  Runs on the card unless ``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from deepfbsdejsolvers_torch.models.mfg_smart_grid import make_mfg_default
 from deepfbsdejsolvers_torch.solvers.mfg import MFGSolver
 from deepfbsdejsolvers_torch.solvers.train import make_generator
 from deepfbsdejsolvers_torch.utils.logging import MetricsLogger
+from deepfbsdejsolvers_torch.utils.profiling import trace_profile
 
 
 @dataclasses.dataclass
@@ -60,6 +62,7 @@ def run_mfg_comparison(config: MFGComparisonConfig, verbose: bool = True,
                        device: str = "cuda") -> MFGComparisonResult:
     model = build_mfg_model(config)
     io = config.io
+    io.warn_no_checkpoint("mfg-compare")
     logger = None
     if io.outdir and io.metrics_jsonl:
         os.makedirs(io.outdir, exist_ok=True)
@@ -68,33 +71,36 @@ def run_mfg_comparison(config: MFGComparisonConfig, verbose: bool = True,
 
     results: Dict[str, MFGMethodResult] = {}
     solvers: Dict[str, MFGSolver] = {}
-    for method in config.methods:
-        if verbose:
-            print(f"==== MFG method {method} (couplage {config.couplage}) "
-                  "====")
-        solver = MFGSolver(model=model, scheme=MFG_METHOD_TO_SCHEME[method],
-                           hidden_hat=config.hidden_hat, hidden=config.hidden,
-                           activation_hat=config.activation_hat,
-                           activation=config.activation,
-                           scan_chunk=config.scan_chunk, device=device)
-        solvers[method] = solver
-        mlog = logger.child(method=method) if logger else None
-        res = solver.train(
-            seed=config.seed, batch=config.batch_size,
-            batch_val=config.batch_size * 10, num_epoch=config.n_epoch,
-            num_epoch_ext=config.n_epoch_ext,
-            lrate=config.lrate_for(method), couplage=config.couplage,
-            verbose=verbose,
-            on_epoch=(lambda i, m, s: mlog.log(epoch=i, **m)) if mlog
-            else None,
-            y0_warm_start=config.y0_warm_start)
-        results[method] = MFGMethodResult(
-            method=method, y0_hat_history=res.y0_hat_history,
-            y0_history=res.y0_history, loss_history=res.loss_history,
-            params=res.params)
-        if logger:
-            logger.log(event="method_done", method=method,
-                       y0_hat=res.y0_hat_history[-1], y0=res.y0_history[-1])
+    with trace_profile(io.profile_dir):
+        for method in config.methods:
+            if verbose:
+                print(f"==== MFG method {method} (couplage {config.couplage}) "
+                      "====")
+            solver = MFGSolver(
+                model=model, scheme=MFG_METHOD_TO_SCHEME[method],
+                hidden_hat=config.hidden_hat, hidden=config.hidden,
+                activation_hat=config.activation_hat,
+                activation=config.activation, scan_chunk=config.scan_chunk,
+                device=device)
+            solvers[method] = solver
+            mlog = logger.child(method=method) if logger else None
+            res = solver.train(
+                seed=config.seed, batch=config.batch_size,
+                batch_val=config.batch_size * 10, num_epoch=config.n_epoch,
+                num_epoch_ext=config.n_epoch_ext,
+                lrate=config.lrate_for(method), couplage=config.couplage,
+                verbose=verbose,
+                on_epoch=(lambda i, m, s: mlog.log(epoch=i, **m)) if mlog
+                else None,
+                y0_warm_start=config.y0_warm_start)
+            results[method] = MFGMethodResult(
+                method=method, y0_hat_history=res.y0_hat_history,
+                y0_history=res.y0_history, loss_history=res.loss_history,
+                params=res.params)
+            if logger:
+                logger.log(event="method_done", method=method,
+                           y0_hat=res.y0_hat_history[-1],
+                           y0=res.y0_history[-1])
 
     if config.n_simulation:
         # every trained policy's objective cost on ONE common frozen noise

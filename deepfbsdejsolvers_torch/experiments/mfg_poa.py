@@ -6,8 +6,9 @@ policies on ONE frozen common-noise set, and tabulates PoA = cost_MFG /
 cost_MFC with 95% CIs (mainMFGPoA.py:189-337).  Artifacts under
 ``io.outdir``: ``poa_table.csv`` (the columns of ``PoARunResult.table``),
 ``metrics.jsonl``, and with ``io.save_plots`` the multi-page PDF of
-consumption / deviation / price panels (matplotlib, imported only then).
-Runs on the card unless ``device="cpu"`` is asked for.
+consumption / deviation / price panels (matplotlib, imported only then);
+with ``io.profile_dir`` a ``torch.profiler`` trace of the training and
+replays.  Runs on the card unless ``device="cpu"`` is asked for.
 
 Seeds: the frozen noise from the generator of (seed, 0) on the device,
 each (case, π, model) cell's training from a seed derived from (seed, 1,
@@ -33,6 +34,7 @@ from deepfbsdejsolvers_torch.models.mfg_smart_grid import (
 from deepfbsdejsolvers_torch.solvers.mfg import MFGSolver
 from deepfbsdejsolvers_torch.solvers.train import make_generator
 from deepfbsdejsolvers_torch.utils.logging import MetricsLogger
+from deepfbsdejsolvers_torch.utils.profiling import trace_profile
 
 TABLE_COLUMNS = ("case", "pi", "PoA", "MFG cost", "MFG ci95", "MFC cost",
                  "MFC ci95")
@@ -98,6 +100,7 @@ def _cell_seed(seed: int, cell_id: int) -> int:
 def run_mfg_poa(config: MFGPoAConfig, verbose: bool = True,
                 device: str = "cuda") -> PoARunResult:
     io = config.io
+    io.warn_no_checkpoint("mfg-poa")
     logger = None
     if io.outdir and io.metrics_jsonl:
         os.makedirs(io.outdir, exist_ok=True)
@@ -114,45 +117,47 @@ def run_mfg_poa(config: MFGPoAConfig, verbose: bool = True,
 
     scheme = MFG_METHOD_TO_SCHEME[config.method]
     cells: List[PoACell] = []
-    for i_case, (case, (p0, p1, f0, f1)) in enumerate(config.cases.items()):
-        for i_pi, pi in enumerate(config.pi_list):
-            if verbose:
-                print(f"==== case '{case}'  pi={pi} ====")
-            evaluators: Dict[str, MFGFixedTrajectoryEvaluator] = {}
-            for i_tag, (tag, coeff_equi) in enumerate((("mfg", 1.0),
-                                                       ("mfc", 2.0))):
-                model = _make_model(config, pi, p0, p1, f0, f1, coeff_equi)
-                solver = _solver(config, model, scheme, device)
-                cell_id = (i_case * len(config.pi_list) + i_pi) * 2 + i_tag
-                res = solver.train(
-                    seed=_cell_seed(config.seed, cell_id),
-                    batch=config.batch_size,
-                    batch_val=config.batch_size * 10,
-                    num_epoch=config.n_epoch,
-                    num_epoch_ext=config.n_epoch_ext,
-                    lrate=config.lrate_for(config.method),
-                    couplage=config.couplage, verbose=verbose,
-                    y0_warm_start=config.y0_warm_start)
-                for player, dw in enumerate(dws):
-                    evaluators[f"{tag}_p{player + 1}"] = (
-                        MFGFixedTrajectoryEvaluator(
-                            solver=solver, params=res.params,
-                            noise=FrozenNoise(dW0=dw0, dW=dw, dN=dn)))
-            poa = price_of_anarchy(evaluators["mfg_p1"], evaluators["mfc_p1"],
-                                   config.n_frozen)
-            # player-2 replays for the two-player trajectory panels
-            evaluators["mfg_p2"].simulate_all_processes(config.n_frozen)
-            evaluators["mfc_p2"].simulate_all_processes(config.n_frozen)
-            cells.append(PoACell(
-                case=case, pi=pi, poa=poa["poa"], mfg_cost=poa["mfg_cost"],
-                mfg_ci=poa["mfg_ci"], mfc_cost=poa["mfc_cost"],
-                mfc_ci=poa["mfc_ci"], evaluators=evaluators))
-            if logger:
-                logger.log(event="cell_done", case=case, pi=pi, **poa)
-            if verbose:
-                print(f"  PoA = {poa['poa']:.6f}  "
-                      f"(MFG {poa['mfg_cost']:.4f}±{poa['mfg_ci']:.4f}, "
-                      f"MFC {poa['mfc_cost']:.4f}±{poa['mfc_ci']:.4f})")
+    with trace_profile(io.profile_dir):
+        for i_case, (case, (p0, p1, f0, f1)) in enumerate(
+                config.cases.items()):
+            for i_pi, pi in enumerate(config.pi_list):
+                if verbose:
+                    print(f"==== case '{case}'  pi={pi} ====")
+                evaluators: Dict[str, MFGFixedTrajectoryEvaluator] = {}
+                for i_tag, (tag, coeff_equi) in enumerate((("mfg", 1.0),
+                                                           ("mfc", 2.0))):
+                    model = _make_model(config, pi, p0, p1, f0, f1, coeff_equi)
+                    solver = _solver(config, model, scheme, device)
+                    cell_id = (i_case * len(config.pi_list) + i_pi) * 2 + i_tag
+                    res = solver.train(
+                        seed=_cell_seed(config.seed, cell_id),
+                        batch=config.batch_size,
+                        batch_val=config.batch_size * 10,
+                        num_epoch=config.n_epoch,
+                        num_epoch_ext=config.n_epoch_ext,
+                        lrate=config.lrate_for(config.method),
+                        couplage=config.couplage, verbose=verbose,
+                        y0_warm_start=config.y0_warm_start)
+                    for player, dw in enumerate(dws):
+                        evaluators[f"{tag}_p{player + 1}"] = (
+                            MFGFixedTrajectoryEvaluator(
+                                solver=solver, params=res.params,
+                                noise=FrozenNoise(dW0=dw0, dW=dw, dN=dn)))
+                poa = price_of_anarchy(evaluators["mfg_p1"],
+                                       evaluators["mfc_p1"], config.n_frozen)
+                # player-2 replays for the two-player trajectory panels
+                evaluators["mfg_p2"].simulate_all_processes(config.n_frozen)
+                evaluators["mfc_p2"].simulate_all_processes(config.n_frozen)
+                cells.append(PoACell(
+                    case=case, pi=pi, poa=poa["poa"], mfg_cost=poa["mfg_cost"],
+                    mfg_ci=poa["mfg_ci"], mfc_cost=poa["mfc_cost"],
+                    mfc_ci=poa["mfc_ci"], evaluators=evaluators))
+                if logger:
+                    logger.log(event="cell_done", case=case, pi=pi, **poa)
+                if verbose:
+                    print(f"  PoA = {poa['poa']:.6f}  "
+                          f"(MFG {poa['mfg_cost']:.4f}±{poa['mfg_ci']:.4f}, "
+                          f"MFC {poa['mfc_cost']:.4f}±{poa['mfc_ci']:.4f})")
 
     result = PoARunResult(cells=cells)
     if io.outdir:

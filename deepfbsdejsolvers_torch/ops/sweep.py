@@ -14,9 +14,13 @@ v_m = w_m·W2[:, 0].  What is left,
 
 plus the folded bias wb2 = Σ_m w_m·b2, is computed by ``sweep_plain`` in
 PyTorch (the CPU path, and the oracle the kernels are held against) and by
-two CUDA kernels on the card: B3, the forward (``csrc/sweep_fwd.cu``), and
-B4, the backward (``csrc/sweep_bwd.cu``), behind the ``FusedSweep`` autograd
-function.  ``fused_sweep`` dispatches on the device of its input: the plain
+two CUDA kernels on the card: B3, the forward, and B4, the backward, behind
+the ``FusedSweep`` autograd function.  They come in two builds: specialised
+at the hidden widths ``KERNEL_WIDTHS`` (8 and 21; ``csrc/sweep_fwd.cu``,
+``csrc/sweep_bwd.cu``), and wide at every other width up to
+``SWEEP_MAX_WIDTH`` (``csrc/sweep_wide_fwd.cu``, ``csrc/sweep_wide_bwd.cu``,
+zero-padded to a width class of 32, 64 or 128), each with its own launch
+count.  ``fused_sweep`` dispatches on the device of its input: the plain
 sweep on CPU tensors, the kernels on CUDA tensors, and no fallback from the
 kernels to the plain sweep.
 """
@@ -33,6 +37,13 @@ from deepfbsdejsolvers_torch.ops.rollout import (
 # bound its partial buffer (csrc/sweep_bwd.cu BWD_TILE).
 _TILE = 256
 _B4_MAX_BLOCKS = 512
+# The widest head the wide kernels take: the JAX package's Pallas sweep
+# takes two equal tanh layers up to 128 wide.  Their width classes, and the
+# most blocks the wide B4 launches, two per SM of an H100
+# (csrc/sweep_wide.cuh, csrc/sweep_wide_bwd.cu).
+SWEEP_MAX_WIDTH = 128
+_WIDE_CLASSES = (32, 64, 128)
+_WIDE_B4_MAX_BLOCKS = 2 * 132
 
 
 def rank1_three_feature(head, t, feat, x_prop: bool, weights):
@@ -89,8 +100,24 @@ def _check_sizes(batch: int, m: int, h: int) -> None:
                          "indices")
 
 
-def _check_sweep(x, a, c, w1, b1, v):
-    """Shared validation of both kernels' inputs; returns (batch, m, h)."""
+def wide_class(h: int) -> int:
+    """The width class HP the wide kernels pad hidden width ``h`` to."""
+    for hp in _WIDE_CLASSES:
+        if 1 <= h <= hp:
+            return hp
+    raise ValueError(f"the wide sweep kernels take hidden widths 1.."
+                     f"{SWEEP_MAX_WIDTH}, got {h}")
+
+
+def wide_tile(h: int) -> int:
+    """Paths per block of the wide kernels at hidden width ``h``: eight
+    warps of 16·32 / HP paths each."""
+    return 8 * 16 * 32 // wide_class(h)
+
+
+def _check_sweep(x, a, c, w1, b1, v, wide: bool = False):
+    """Shared validation of the kernels' inputs (the specialised kernels',
+    or with ``wide`` the wide kernels'); returns (batch, m, h)."""
     if x.device.type != "cuda":
         raise ValueError(f"the sweep kernels take CUDA tensors, got "
                          f"{x.device}")
@@ -101,9 +128,14 @@ def _check_sweep(x, a, c, w1, b1, v):
         raise ValueError(f"a: expected (M, H) with M >= 1, got "
                          f"{tuple(a.shape)}")
     (batch,), (m, h), dev = x.shape, a.shape, x.device
-    if h not in KERNEL_WIDTHS:
-        raise ValueError(f"the sweep kernels are built for hidden widths "
-                         f"{KERNEL_WIDTHS}, got {h}")
+    if wide:
+        wide_class(h)
+        if h in KERNEL_WIDTHS:
+            raise ValueError(f"hidden widths {KERNEL_WIDTHS} have their "
+                             f"specialised sweep kernels, got {h}")
+    elif h not in KERNEL_WIDTHS:
+        raise ValueError(f"the specialised sweep kernels are built for "
+                         f"hidden widths {KERNEL_WIDTHS}, got {h}")
     _check_sizes(batch, m, h)
     for name, t, shape in (("x", x, (batch,)), ("a", a, (m, h)),
                            ("c", c, (m, h)), ("w1", w1, (h, h)),
@@ -112,48 +144,27 @@ def _check_sweep(x, a, c, w1, b1, v):
     return batch, m, h
 
 
-def b3_forward(x, a, c, w1, b1, v):
-    """Kernel B3: the sweep's forward, each thread carrying a few paths
-    through the nodes in order.  Returns out (B,)."""
-    batch, m, h = _check_sweep(x, a, c, w1, b1, v)
-    fn = _lib("sweep_fwd", 7, 3, 0)
+def _launch_fwd(name: str, wide: bool, x, a, c, w1, b1, v):
+    """Launch the forward kernel of library ``name``; returns out (B,)."""
+    batch, m, h = _check_sweep(x, a, c, w1, b1, v, wide=wide)
+    fn = _lib(name, 7, 3, 0)
     out = torch.empty((batch,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(*map(_ptr, (x, a, c, w1, b1, v, out)), batch, m, h,
                 stream)
     if rc != 0:
-        raise RuntimeError(f"sweep_fwd: CUDA error {rc} at launch")
-    b3_forward.launches += 1
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     return out
 
 
-b3_forward.launches = 0
-
-
-def b4_blocks(batch: int) -> int:
-    """Thread blocks of B4 for ``batch`` paths: one per 256-path tile up to
-    a fixed maximum, each block walking its tiles in order."""
-    return min(-(-batch // _TILE), _B4_MAX_BLOCKS)
-
-
-def b4_partial_shape(batch: int, m: int, h: int):
-    """(blocks, floats per block) of B4's partial buffer: dW1, db1 and the
-    per-node da, dc, dv of each block, whatever the batch."""
-    return b4_blocks(batch), h * h + h + 3 * m * h
-
-
-def b4_backward(x, a, c, w1, b1, v, g):
-    """Kernel B4: the sweep's backward for the cotangent ``g`` (B,).  It
-    recomputes each path's hidden layers per node, keeps dx in the thread,
-    and sums the weight cotangents over paths per block (dW1 and db1 as a
-    register-tiled product, da, dc and dv by warp shuffles); a second kernel
-    sums the blocks' partials in block order.  Returns
-    (dx, da, dc, dw1, db1, dv)."""
-    batch, m, h = _check_sweep(x, a, c, w1, b1, v)
+def _launch_bwd(name: str, wide: bool, x, a, c, w1, b1, v, g):
+    """Launch the backward kernel of library ``name`` and its block-order
+    reduction; returns (dx, da, dc, dw1, db1, dv)."""
+    batch, m, h = _check_sweep(x, a, c, w1, b1, v, wide=wide)
     _check("g", g, (batch,), x.device)
     n_blocks, n_out = b4_partial_shape(batch, m, h)
-    fn = _lib("sweep_bwd", 10, 4, 0)
+    fn = _lib(name, 10, 4, 0)
     kw = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((batch,), **kw)
     part = torch.empty((n_blocks, n_out), **kw)
@@ -163,29 +174,111 @@ def b4_backward(x, a, c, w1, b1, v, g):
         rc = fn(*map(_ptr, (x, a, c, w1, b1, v, g, dx, part, out)), batch,
                 m, h, n_blocks, stream)
     if rc != 0:
-        raise RuntimeError(f"sweep_bwd: CUDA error {rc} at launch")
-    b4_backward.launches += 1
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     dw1 = out[:h * h].view(h, h)
     db1 = out[h * h:h * h + h]
     da, dc, dv = out[h * h + h:].view(3, m, h)
     return dx, da, dc, dw1, db1, dv
 
 
+def b3_forward(x, a, c, w1, b1, v):
+    """Kernel B3: the sweep's forward, each thread carrying a few paths
+    through the nodes in order.  Returns out (B,)."""
+    out = _launch_fwd("sweep_fwd", False, x, a, c, w1, b1, v)
+    b3_forward.launches += 1
+    return out
+
+
+b3_forward.launches = 0
+
+
+def b3_wide_forward(x, a, c, w1, b1, v):
+    """Kernel B3 at every hidden width up to ``SWEEP_MAX_WIDTH`` bar
+    ``KERNEL_WIDTHS``: each warp carries a few paths through the nodes in
+    order, its lanes sharing the hidden units.  Returns out (B,)."""
+    out = _launch_fwd("sweep_wide_fwd", True, x, a, c, w1, b1, v)
+    b3_wide_forward.launches += 1
+    return out
+
+
+b3_wide_forward.launches = 0
+
+
+def b4_blocks(batch: int) -> int:
+    """Thread blocks of B4 for ``batch`` paths: one per 256-path tile up to
+    a fixed maximum, each block walking its tiles in order."""
+    return min(-(-batch // _TILE), _B4_MAX_BLOCKS)
+
+
+def b4_wide_blocks(batch: int, h: int) -> int:
+    """Thread blocks of the wide B4 for ``batch`` paths at hidden width
+    ``h``: one per tile up to a fixed maximum, each walking its tiles in
+    order."""
+    return min(-(-batch // wide_tile(h)), _WIDE_B4_MAX_BLOCKS)
+
+
+def b4_partial_shape(batch: int, m: int, h: int):
+    """(blocks, floats per block) of the partial buffer of the B4 of hidden
+    width ``h`` (the specialised one at ``KERNEL_WIDTHS``, the wide one
+    elsewhere): dW1, db1 and the per-node da, dc, dv of each block,
+    whatever the batch."""
+    blocks = b4_blocks(batch) if h in KERNEL_WIDTHS else b4_wide_blocks(
+        batch, h)
+    return blocks, h * h + h + 3 * m * h
+
+
+def b4_backward(x, a, c, w1, b1, v, g):
+    """Kernel B4: the sweep's backward for the cotangent ``g`` (B,).  It
+    recomputes each path's hidden layers per node, keeps dx in the thread,
+    and sums the weight cotangents over paths per block (dW1 and db1 as a
+    register-tiled product, da, dc and dv by warp shuffles); a second kernel
+    sums the blocks' partials in block order.  Returns
+    (dx, da, dc, dw1, db1, dv)."""
+    grads = _launch_bwd("sweep_bwd", False, x, a, c, w1, b1, v, g)
+    b4_backward.launches += 1
+    return grads
+
+
 b4_backward.launches = 0
 
 
+def b4_wide_backward(x, a, c, w1, b1, v, g):
+    """Kernel B4 at every hidden width up to ``SWEEP_MAX_WIDTH`` bar
+    ``KERNEL_WIDTHS``, for the cotangent ``g`` (B,): each warp recomputes
+    its paths' hidden layers and their backward, the block sums dW1 over its
+    paths as register micro-tiles and da, dc, dv over its warps in order; a
+    second kernel sums the blocks' partials in block order.  Returns (dx,
+    da, dc, dw1, db1, dv)."""
+    grads = _launch_bwd("sweep_wide_bwd", True, x, a, c, w1, b1, v, g)
+    b4_wide_backward.launches += 1
+    return grads
+
+
+b4_wide_backward.launches = 0
+
+
+def sweep_kernels(h: int):
+    """(forward, backward) kernels of hidden width ``h``: the specialised
+    B3/B4 at ``KERNEL_WIDTHS``, the wide ones at every other width."""
+    if h in KERNEL_WIDTHS:
+        return b3_forward, b4_backward
+    return b3_wide_forward, b4_wide_backward
+
+
 class FusedSweep(torch.autograd.Function):
-    """B3 forward, B4 backward.  Only the inputs are saved: B4 recomputes
-    the hidden layers, so no [M, B, H] activation outlives the call."""
+    """B3 forward, B4 backward, of the build for the head's width.  Only
+    the inputs are saved: B4 recomputes the hidden layers, so no [M, B, H]
+    activation outlives the call."""
 
     @staticmethod
     def forward(ctx, x, a, c, w1, b1, v):
         ctx.save_for_backward(x, a, c, w1, b1, v)
-        return b3_forward(x, a, c, w1, b1, v)
+        return sweep_kernels(a.shape[1])[0](x, a, c, w1, b1, v)
 
     @staticmethod
     def backward(ctx, g):
-        return b4_backward(*ctx.saved_tensors, g.contiguous())
+        saved = ctx.saved_tensors
+        return sweep_kernels(saved[1].shape[1])[1](*saved, g.contiguous())
 
 
 def fused_sweep(x, a, c, w1, b1, v):
@@ -196,4 +289,4 @@ def fused_sweep(x, a, c, w1, b1, v):
     args = tuple(t.contiguous() for t in (x, a, c, w1, b1, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return FusedSweep.apply(*args)
-    return b3_forward(*args)
+    return sweep_kernels(a.shape[1])[0](*args)

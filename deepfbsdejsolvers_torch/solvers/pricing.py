@@ -43,7 +43,7 @@ evaluated before the loop.  Then the time loop runs either
   (``"chebyshev"``).  With ``sweep_impl="pallas"`` the direct sweep of a
   one-output head runs in the rank-1 form of ``ops/sweep.py`` (a Γ net's,
   or the pure-jump U-net's on (t, X·(1 + J))): on the card as the B3/B4
-  CUDA kernels.
+  CUDA kernels, at any width up to 128.
 
 Reference idiosyncrasies kept on purpose: the time feature fed to the nets
 is the raw step index i (times ``time_scale``), not i·dt; the sumlocal
@@ -60,7 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -77,7 +77,7 @@ from deepfbsdejsolvers_torch.ops.rollout import (
     KERNEL_COEFFS, KERNEL_WIDTHS, FusedRolloutOp, merton_form_constants,
     rollout_plain, table_eval)
 from deepfbsdejsolvers_torch.ops.sweep import (
-    fused_sweep, rank1_three_feature, rank1_two_feature)
+    SWEEP_MAX_WIDTH, fused_sweep, rank1_three_feature, rank1_two_feature)
 
 PRICING_SCHEMES = ("global", "multistep1", "multistep2", "sumlocal1",
                    "sumlocal2", "sumlocal_reg", "multistep_reg")
@@ -499,16 +499,19 @@ class PricingSolver:
         return out
 
     # ----------------------------------------------------- kernel conditions
-    def _head_unmet(self) -> List[str]:
-        """Why the Γ head does not fit the CUDA kernels: they take two equal
-        tanh hidden layers of a width they are built for."""
+    def _head_unmet(self, widths: Union[Tuple[int, ...], range]
+                    ) -> List[str]:
+        """Why the Γ head does not fit a pair of CUDA kernels: they take
+        two equal tanh hidden layers of a width in ``widths``."""
         h = self.hidden
+        shown = (f"{widths[0]}..{widths[-1]}" if isinstance(widths, range)
+                 else str(widths))
         reasons = []
         if self.activation != "tanh":
             reasons.append(f"activation {self.activation!r} != 'tanh'")
-        if not (len(h) == 2 and h[0] == h[1] and h[0] in KERNEL_WIDTHS):
+        if not (len(h) == 2 and h[0] == h[1] and h[0] in widths):
             reasons.append(f"hidden {tuple(h)} must be two equal layers of a "
-                           f"width in {KERNEL_WIDTHS}")
+                           f"width in {shown}")
         return reasons
 
     def fused_unmet(self) -> List[str]:
@@ -521,7 +524,7 @@ class PricingSolver:
                            "global scheme's rollout")
         if not self.hoist or self.hoist_interp != "piecewise":
             reasons.append("needs hoist=True and hoist_interp='piecewise'")
-        reasons += self._head_unmet()
+        reasons += self._head_unmet(KERNEL_WIDTHS)
         if self.pw_degree + 1 != KERNEL_COEFFS:
             reasons.append(f"pw_degree {self.pw_degree} != "
                            f"{KERNEL_COEFFS - 1}")
@@ -532,12 +535,14 @@ class PricingSolver:
 
     def sweep_unmet(self) -> List[str]:
         """The unmet preconditions of the sweep kernels B3/B4 (empty when
-        they apply): a swept head the kernels take (one output: a Γ net, or
-        the pure-jump U-net of multistep1/sumlocal1, not the jump-diffusion
+        they apply): a swept head the kernels take (two equal tanh layers at
+        most ``SWEEP_MAX_WIDTH`` wide and one output: a Γ net, or the
+        pure-jump U-net of multistep1/sumlocal1, not the jump-diffusion
         2-output U-net), f32 heads, and no compensator sharding.  The JAX
         package warns and falls back to its XLA sweep on these; the port
-        refuses them."""
-        reasons = self._head_unmet()
+        refuses them (the pricing pipeline chooses the plain sweep for such
+        a method before it builds the solver, and says so)."""
+        reasons = self._head_unmet(range(1, SWEEP_MAX_WIDTH + 1))
         if not self.use_gam_net and self.with_heads and self.jump_diff:
             reasons.append(f"scheme {self.scheme!r} sweeps the 2-output "
                            "U-net, Γ = U(t, X·e^J)[0]; the kernels take a "

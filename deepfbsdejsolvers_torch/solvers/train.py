@@ -5,8 +5,10 @@ with).  The Y0 read-out is a float, or a tuple of floats where ``y0_fn``
 gives a tuple (the MFG solvers' (Y0_hat, Y0) pair).  The learning rate is
 a float or a schedule of the update count (``cosine_decay_schedule``, the
 gates' schedule).  The noise of outer
-epoch k comes from generators seeded by (seed, k), so a run restarted at
-epoch k replays the same noise stream.
+epoch k comes from generators seeded by (seed, 1, 2k) and (seed, 1, 2k + 1),
+so a run resumed at epoch k with the optimizer's state
+(``start_epoch``, ``optimizer_state``; ``utils/checkpointing.py``)
+replays the uncut run's remaining epochs bit for bit.
 """
 
 from __future__ import annotations
@@ -67,11 +69,14 @@ def make_adam(params, lrate: LearningRate) -> torch.optim.Adam:
 
 
 def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
-              params, lrate: Optional[Callable[[int], float]] = None
-              ) -> Callable:
+              params, lrate: Optional[Callable[[int], float]] = None,
+              start_count: int = 0) -> Callable:
     """``step(generator) -> loss``: one gradient step on a fresh draw.  With
-    a schedule ``lrate``, the k-th call's update runs at ``lrate(k)``."""
-    count = 0
+    a schedule ``lrate``, the k-th call's update runs at
+    ``lrate(start_count + k)``.  With autograd's anomaly mode on (the NaN
+    guard, ``utils/debug.py``) a non-finite loss raises FloatingPointError
+    before its backward."""
+    count = start_count
 
     def step(generator):
         nonlocal count
@@ -80,6 +85,10 @@ def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
                 group["lr"] = lrate(count)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, generator)
+        if torch.is_anomaly_enabled() and not bool(torch.isfinite(loss)):
+            raise FloatingPointError(
+                f"non-finite training loss {float(loss.detach())} at "
+                f"update {count}")
         loss.backward()
         optimizer.step()
         count += 1
@@ -99,30 +108,38 @@ def fit(loss_fn: Callable, params, seed: int, lrate: LearningRate,
         num_epoch: int, num_epoch_ext: int,
         val_loss_fn: Optional[Callable] = None,
         y0_fn: Optional[Callable] = None, verbose: bool = True,
-        on_epoch: Optional[Callable[[int, dict, Any], None]] = None
+        on_epoch: Optional[Callable[[int, dict, Any], None]] = None,
+        start_epoch: int = 0, optimizer_state: Optional[dict] = None
         ) -> TrainResult:
-    """Train ``params`` (leaf tensors, updated in place) for num_epoch_ext
-    outer epochs of num_epoch Adam steps, at the learning rate ``lrate``:
-    a float, or a function of the update count over the whole fit.
+    """Train ``params`` (leaf tensors, updated in place) for outer epochs
+    ``start_epoch`` .. num_epoch_ext − 1 of num_epoch Adam steps each, at
+    the learning rate ``lrate``: a float, or a function of the update count
+    over the whole fit (epoch k's first update is count k·num_epoch).
 
     ``val_loss_fn(params, generator)`` is evaluated without gradients once
     per outer epoch; ``y0_fn(params)`` extracts the current Y0 (a tensor
     or a tuple of them).  Epoch k draws its steps' noise from the generator
     seeded by (seed, 1, 2k) and its validation noise from (seed, 1, 2k+1).
     ``on_epoch(k, {"loss", "y0", "duration_s"}, (params, optimizer,
-    seed))`` fires after each outer epoch: the hook for metrics logging."""
+    seed))`` fires after each outer epoch: the hook for metrics logging and
+    checkpoints, whose state is the params, ``optimizer.state_dict()``, the
+    seed and k.  Resume: ``start_epoch`` = k + 1 and ``optimizer_state``
+    that state dict, with ``params`` holding the saved leaves."""
     leaves = param_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
     device = leaves[0].device
     optimizer = make_adam(params, lrate)
+    if optimizer_state is not None:
+        optimizer.load_state_dict(optimizer_state)
     step = make_step(loss_fn, optimizer, params,
-                     lrate if callable(lrate) else None)
+                     lrate if callable(lrate) else None,
+                     start_count=start_epoch * num_epoch)
     y0_hist: List[float] = []
     loss_hist: List[float] = []
     dur_hist: List[float] = []
     duration = 0.0
-    for iout in range(num_epoch_ext):
+    for iout in range(start_epoch, num_epoch_ext):
         gen = make_generator(device, seed, 1, 2 * iout)
         t0 = time.perf_counter()
         for _ in range(num_epoch):

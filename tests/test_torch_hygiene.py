@@ -44,7 +44,9 @@ def test_importing_every_module_loads_no_jax():
         "experiments.vg_moment_probe", "models.mfg_smart_grid",
         "solvers.mfg", "eval.mfg_lq_oracle", "eval.mfg_solutions",
         "experiments.configs", "experiments.mfg_comparison",
-        "experiments.mfg_poa", "utils.logging")} <= names
+        "experiments.mfg_poa", "utils.logging", "experiments.pricing",
+        "experiments.cli", "utils.checkpointing", "utils.profiling",
+        "utils.debug", "__main__")} <= names
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -2,7 +2,7 @@
 comparison and the Price-of-Anarchy runs, their CSV, JSONL and figure
 artifacts), their configs against the JAX package's, the training loop's
 pair read-out and per-epoch hook, couplage ON and OFF, the metrics logger,
-and the knobs the port refuses."""
+and the knob the port refuses."""
 
 import csv
 import dataclasses
@@ -58,12 +58,37 @@ def test_configs_match_jax():
 
 
 def test_refusals_name_item_12():
-    for kw in (dict(checkpoint_every=5), dict(resume=True),
-               dict(profile_dir="trace")):
+    """Data parallelism is what item 12 still refuses (checkpoints,
+    resume and profiling are ported: tests/test_torch_checkpoint.py,
+    tests/test_torch_utils.py)."""
+    for config in (tc.MFGPoAConfig, tc.MFGComparisonConfig, tc.MertonConfig,
+                   tc.VGConfig):
         with pytest.raises(NotImplementedError, match="item 12"):
-            tc.RunIO(**kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tc.MFGPoAConfig(data_parallel=True)
+            config(data_parallel=True)
+
+
+@pytest.mark.parametrize("pipeline", ["mfg-compare", "mfg-poa"])
+def test_mfg_pipelines_say_they_ignore_checkpointing(pipeline, tmp_path,
+                                                     capsys):
+    """The MFG pipelines take checkpoint_every and resume, as the JAX
+    package's do, write no checkpoint, and say so on stderr."""
+    io = tc.RunIO(outdir=str(tmp_path), checkpoint_every=1, resume=True)
+    tiny_run = dict(n_epoch_ext=1, n_epoch=1, batch_size=8, nb_days=1,
+                    io=io)
+    if pipeline == "mfg-compare":
+        run_mfg_comparison(tc.MFGComparisonConfig(
+            methods=("Global",), n_simulation=16, **tiny_run),
+            verbose=False, device="cpu")
+    else:
+        run_mfg_poa(tc.MFGPoAConfig(
+            n_frozen=8, n_replay=1, pi_list=(0.1,), jump_sampler="icdf",
+            cases={"with jumps and with dynamic pricing":
+                   (6.159423723, 87.4286117, 0.0, 1e4)}, **tiny_run),
+            verbose=False, device="cpu")
+    err = capsys.readouterr().err
+    assert (f"{pipeline}: checkpoint_every and resume asked for; this "
+            "pipeline writes and restores no checkpoint") in err
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_fit_reads_out_the_pair_and_calls_the_hook():

@@ -195,20 +195,24 @@ def test_b4_partials_are_bounded_independently_of_the_batch():
         1, 1, 1, 1, 2, 4, 512, 512]
     h, m = 21, 5000
     blocks, per_block = S.b4_partial_shape(2**20, m, h)
+    assert blocks == S.b4_blocks(2**20)
     assert per_block == h * h + h + 3 * m * h
     assert blocks * per_block <= 512 * (h * h + h + 3 * m * h)
 
 
+@pytest.mark.parametrize("h", [8, 21, 20, 64, 100, 128])
 @pytest.mark.parametrize("m,batch", [
     (1, 1), (17, 37), (49, 1025), (49, 2**17), (5000, 2**12 + 37),
     (5000, 2**17), (5000, 2**20)])
-def test_b4_scratch_stays_within_its_bound(m, batch):
+def test_b4_scratch_stays_within_its_bound(m, batch, h):
     """Every block walks at least one tile, and the partial buffer holds at
-    most 512 × (H² + H + 3·M·H) floats, at any batch and node count."""
-    h = 21
+    most 512 (the specialised B4 at 8 and 21) or 264 (the wide B4
+    elsewhere) × (H² + H + 3·M·H) floats, at any batch and node count."""
+    tile, most = (256, 512) if h in (8, 21) else (S.wide_tile(h), 264)
     blocks, per_block = S.b4_partial_shape(batch, m, h)
-    assert 1 <= blocks <= -(-batch // 256)
-    assert blocks * per_block <= 512 * (h * h + h + 3 * m * h)
+    assert per_block == h * h + h + 3 * m * h
+    assert 1 <= blocks <= -(-batch // tile)
+    assert blocks * per_block <= most * (h * h + h + 3 * m * h)
 
 
 @pytest.mark.parametrize("batch,m,fits", [
@@ -236,7 +240,7 @@ def test_parity_configuration_builds_with_the_defaults():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(hidden=(16, 16)), "two equal layers"),
+    (dict(hidden=(129, 129)), "two equal layers"),
     (dict(hidden=(8, 21)), "two equal layers"),
     (dict(hidden=(8, 8, 8)), "two equal layers"),
     (dict(activation="relu"), "activation"),
