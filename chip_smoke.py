@@ -6,8 +6,8 @@ Phases, each fatal on failure:
 1. build the CUDA kernels from ``deepfbsdejsolvers_torch/csrc`` with nvcc,
    all sources at once, and print each kernel's registers and spills
    (ptxas) and B2's, B3's and B4's shared memory per block and resident
-   blocks per SM, the wide B3/B4 (``sweep_wide_*.cu``) per width class
-   32, 64 and 128;
+   blocks per SM, the wide B1/B2 (``rollout_wide_*.cu``) and B3/B4
+   (``sweep_wide_*.cu``) per width class 32, 64 and 128;
 2. hold each kernel against its plain PyTorch version on ragged batches:
    - B1's (x_N, y_N) and B2's gradients through ``FusedRollout`` at full
      width (hidden 21, N = 50, the real hoisted tables of the Merton speed
@@ -43,13 +43,25 @@ Phases, each fatal on failure:
      1025 and at 2^17 + 37 (the wide B4's blocks walk 4 to 16 tiles); the
      plain reference summed over node blocks where its grid passes 2^29
      elements; B4's gradients held leaf by leaf and as a whole;
+   - the wide B1/B2 at hidden 20, 64, 100 and 128 (``WIDE_ROLLOUT_CHECKS``):
+     N = 50 at 2^14 + 37 paths, N = 7 at 1000 paths and at 2.5 tiles for
+     each of the wide B2's 264 blocks (its blocks walk two and three
+     tiles), and N = 50 at 2^17 + 37 (they walk 4 to 16); B1w's (x_N, y_N)
+     and loss, and B2w's gradients two ways (``check_wide_grads``), each as
+     a whole and leaf by leaf: B2w alone on the plain version's own
+     trajectory, and B1w then B2w over the paths whose two forward
+     trajectories straddle no discontinuity of the gradient (a piece of the
+     tables, the sign in the coupling, the payoff's kink; fewer than 1% of
+     the paths, counted in the log);
 3. drive the training paths through their facades at batch 2^17, every
    kernel's launch counter set to 0 just before a path and read just
    after; each kernel must have launched exactly the times the code
    implies for the path, and the others never:
    - the speed path (``SolverGlobalFBSDE``, hoisted piecewise tables,
      ``fused_rollout=True``), 2 outer epochs of 10 Adam steps: B1 once a
-     step and once an evaluation, B2 once a step;
+     step and once an evaluation, B2 once a step; the same at hidden
+     (64, 64) and (128, 128), 2 × 2 steps: B1w 6 and B2w 4 times, B1/B2
+     never;
    - the parity path (``SolverGlobalFBSDE(make_merton_default(), ...,
      sweep_impl="pallas")``, the 49-node quadrature swept at every path),
      2 × 10 steps: B3 at each of the 50 time steps of a step and of an
@@ -72,7 +84,9 @@ Phases, each fatal on failure:
    calls back to back between two CUDA events, after a warm-up) at the
    path's shapes; B3/B4 also at 5000 Monte-Carlo nodes and on the two
    pure-jump forms at the 96-node quadrature; the wide B3/B4 at batch 2^17
-   on the 49- and 96-node sets at each of hidden 20, 64, 100, 128;
+   on the 49- and 96-node sets at each of hidden 20, 64, 100, 128; the wide
+   B1/B2 at N = 50, batch 2^17 at the same widths, and a step of the wide
+   speed path at hidden 64 and 128;
 5. drive the smart-grid MFG model (``mfg_phases``), every launch counter
    set to 0 just before and each required to read 0 just after (its
    paths reach no kernel): the comparison model (N = 95, hidden (20, 20) /
@@ -99,7 +113,13 @@ Phases, each fatal on failure:
    epochs uncut against 2 and then ``--resume`` to 3 (the third epoch's
    Y0, loss and params bit for bit, else within 1e-6 and said so);
    ``--profileDir`` (a non-empty trace) and ``--debugNans`` (finite);
-7. run the accuracy gate ``merton_speed_fused`` through the port's gate
+7. drive the bench (``python -m deepfbsdejsolvers_torch bench``) in this
+   process, a cell a run (``BENCH_CELLS``), each run's launches held exact
+   and its JSON line printed: the speed, --fused and --parity cells and the
+   VG parity cell at bench.py's protocol (2 + 3 epochs of 10 steps at batch
+   2^17), the MC-5000 parity cell cut to 1-step epochs, the VG speed and
+   MFG cells to 2-step epochs and 1 timed epoch;
+8. run the accuracy gate ``merton_speed_fused`` through the port's gate
    runner at its registered budget (3 seeds × 2400 steps, batch 8192,
    warm Y0): it must pass (|Y0 − 0.271457| ≤ 1e-3 on every seed) and
    launch B1 and B2 once per step.
@@ -107,9 +127,10 @@ Phases, each fatal on failure:
 The line before the last holds the card's name and power limit
 (nvidia-smi), the one before it the kernels' JSON record (each kernel's
 launches on its main path, and per path under ``launches_by_path``; the
-wide pair's rows at the ``merton --nbNeuron 64`` path's shapes, every
-width and node set under ``by_width``); the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+wide sweep pair's rows at the ``merton --nbNeuron 64`` path's shapes, the
+wide rollout pair's at the hidden-64 speed path's, every width and node
+set under ``by_width``; the bench cells' lines under ``bench``); the last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
@@ -229,6 +250,37 @@ RESUME_STEPS = 5
 # Picard iterates (the bar of its LQ check is 2e-2 relative)
 MFG_BATCH, MFG_WARM_BATCH, MFG_PICARD = 2**17, 16384, 24
 GATE = "merton_speed_fused"
+# The wide fused rollout (B1w/B2w, every width up to 128 but 8 and 21): its
+# checks at each of WIDE_WIDTHS, (N, batch): the shapes of the specialised
+# B1/B2 checks (full depth at 2^14 + 37 paths; 7 steps at 1000 paths and at
+# 2.5 tiles for each of the wide B2's 264 blocks, less 91 paths, "walk":
+# its blocks walk two and three tiles) and full depth at 2^17 + 37 paths
+# (they walk 4 to 16); and its training at full width in the speed
+# configuration, 2 × 2 steps at batch 2^17
+WIDE_ROLLOUT_CHECKS = ((N_STEPS, CHECK_BATCH), (7, 1000), (7, "walk"),
+                       (N_STEPS, 2**17 + 37))
+WIDE_TRAIN_WIDTHS = (64, 128)
+# The bench (``python -m deepfbsdejsolvers_torch bench``, in this process):
+# (label, its arguments, each kernel's launches).  At bench.py's protocol,
+# 2 warm-up and 3 timed epochs of 10 steps at batch 2^17 (50 steps): the
+# speed cell (no kernel: the plain rollout), --fused (B1/B2 once a step)
+# and --parity (B3/B4 at each of the 50 time steps), the VG parity cell (the
+# plain sweep: bench.py builds it so); cut to 1 step an epoch, the MC-5000
+# parity cell (3 steps of 50 sweeps over 5000 nodes); cut to 2 steps an
+# epoch and 1 timed epoch, the VG speed and MFG cells (no kernel)
+BENCH_STEPS = 5 * 10
+BENCH_CELLS = (
+    ("speed", [], {}),
+    ("fused", ["--fused"], {"B1": BENCH_STEPS, "B2": BENCH_STEPS}),
+    ("parity", ["--parity"], {"B3": BENCH_STEPS * N_STEPS,
+                              "B4": BENCH_STEPS * N_STEPS}),
+    ("parity_mc5000", ["--parity", "--compensator", "mc", "--inner", "1",
+                       "--rounds", "1"], {"B3": 3 * N_STEPS,
+                                          "B4": 3 * N_STEPS}),
+    ("vg_parity", ["--model", "vg", "--parity"], {}),
+    ("vg_speed", ["--model", "vg", "--inner", "2", "--rounds", "1"], {}),
+    ("mfg", ["--model", "mfg", "--inner", "2", "--rounds", "1"], {}),
+)
 # The plain sweep's checks run over node blocks of at most this many M·B·H
 # grid elements (2 GB a tensor), so its autograd fits the card at H = 128
 PLAIN_GRID = 2**29
@@ -365,6 +417,10 @@ def grad_leaves(gam, y0, tabs):
     return [*gam["W"], *gam["b"], y0, tabs["cc"], tabs["pc"], tabs["zc"]]
 
 
+# the names of grad_leaves' tensors, in order
+ROLLOUT_LEAVES = ("W1", "W2", "W3", "b1", "b2", "b3", "y0", "cc", "pc", "zc")
+
+
 def ptxas_lines(log: str):
     """(kernel, line) for each register and spill line of an nvcc -Xptxas
     -v log, the kernel named from its mangled entry (``fwd_kernel<128>``,
@@ -421,15 +477,152 @@ def rollout_case(model, kw, hidden: int, n: int, batch: int):
 
 
 def kernel_module(op):
-    """The module of ``op``'s class, whose ``b1_forward``/``b2_backward``
-    it launches (another version's ``ops/rollout.py`` in an A/B)."""
+    """The module of ``op``'s class, whose B1/B2 wrappers it launches
+    (another version's ``ops/rollout.py`` in an A/B)."""
     return sys.modules[type(op).__module__]
 
 
-def check_kernels(op, model, inputs) -> dict:
-    """Phase 2: each kernel against the plain rollout on the same inputs."""
+def rollout_pair(op):
+    """(B1, B2) wrappers that ``op`` launches at its width: its module's
+    ``rollout_kernels`` (the wide pair at widths other than 8 and 21), or
+    ``b1_forward``/``b2_backward`` in a version that predates it."""
     R = kernel_module(op)
+    pick = getattr(R, "rollout_kernels", None)
+    return pick(op.spec.hidden) if pick else (R.b1_forward, R.b2_backward)
 
+
+def grad_errors(gk, gp):
+    """(global-norm relative error, max abs error, per-leaf relative errors
+    by ``ROLLOUT_LEAVES`` name) of the gradients ``gk`` against ``gp``."""
+    num = math.sqrt(sum(float(torch.sum((a - b) ** 2))
+                        for a, b in zip(gk, gp)))
+    den = math.sqrt(sum(float(torch.sum(b ** 2)) for b in gp))
+    grad_abs = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    leaf_rel = {n: float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                for n, a, b in zip(ROLLOUT_LEAVES, gk, gp)}
+    return num / den, grad_abs, leaf_rel
+
+
+def require_grads(what: str, rel: float, leaf_rel: dict) -> None:
+    """Fail unless the global and every per-leaf relative error is within
+    ``GRAD_REL_TOL``."""
+    if not (math.isfinite(rel) and rel <= GRAD_REL_TOL):
+        fail(f"{what}: gradients disagree with autograd of rollout_plain")
+    off = [n for n, r in leaf_rel.items()
+           if not (math.isfinite(r) and r <= GRAD_REL_TOL)]
+    if off:
+        fail(f"{what}: the gradients of {', '.join(off)} disagree with "
+             "autograd of rollout_plain")
+
+
+def straddling_paths(model, tabs, kernel_res, plain_res):
+    """The paths whose kernel and plain forward trajectories lie, at some
+    step, on two sides of a discontinuity of the rollout's gradient, or
+    within a margin of one: the step's piece of the tables (the piece
+    coordinate within 1e-5 of a boundary), the sign of y − A(x) in the
+    coupling |y − A| (within 4e-6), or x_N against the payoff's strike K
+    (within 1e-5).  Each is (x_N, xs, ys) of one trajectory."""
+    from deepfbsdejsolvers_torch.ops.rollout import table_eval
+
+    p = tabs["cc"].shape[1]
+    lo, hi = tabs["lo"][:, None], tabs["hi"][:, None]
+    out = torch.zeros_like(kernel_res[0], dtype=torch.bool)
+    sides = []
+    for xn, xs, ys in (kernel_res, plain_res):
+        s = torch.clamp((xs - lo) / torch.clamp(hi - lo, min=1e-6), 0, 1) * p
+        k = torch.clamp(torch.floor(s), 0, p - 1)
+        with torch.no_grad():
+            a = torch.stack([table_eval(tabs["pc"][i], xs[i], tabs["lo"][i],
+                                        tabs["hi"][i])
+                             for i in range(xs.shape[0])])
+        u = ys - a
+        out |= ((s - torch.round(s)).abs() < 1e-5).any(0)
+        out |= (u.abs() < 4e-6).any(0) | ((xn - model.K).abs() < 1e-5)
+        sides.append((k, torch.sign(u), xn > model.K))
+    (k1, u1, g1), (k2, u2, g2) = sides
+    return out | (k1 != k2).any(0) | (u1 != u2).any(0) | (g1 != g2)
+
+
+def check_wide_grads(op, model, inputs, loss) -> dict:
+    """Phase 2, the wide B2: its gradients held two ways against autograd
+    of ``rollout_plain`` on the same inputs, each as a whole and leaf by
+    leaf.  (a) B2 alone, replaying the plain version's own forward
+    residuals and cotangents: the gradient of the same trajectory.  (b) B1
+    then B2, as training runs them, over the paths whose two forward
+    trajectories never straddle a discontinuity of the gradient
+    (``straddling_paths``): where they do, a path's whole gradient lands in
+    another piece or sign, and one such path in 2^14 moves the global norm
+    ~1e-4; those paths get no weight in the loss, and they must be fewer
+    than 1% of the paths.  B2 twice bit for bit."""
+    R = kernel_module(op)
+    b1, b2 = rollout_pair(op)
+    gam, y0, tabs, dw, j = inputs
+    leaves = grad_leaves(gam, y0, tabs)
+    xp, yp, pxs, pys = R.rollout_plain(model, gam, y0, tabs, dw, j,
+                                       op.spec.time_scale, residuals=True)
+    gp = torch.autograd.grad(loss(xp, yp), leaves, retain_graph=True)
+    # (a): B2 on the plain trajectory
+    xl, yl = xp.detach().requires_grad_(True), yp.detach().requires_grad_(True)
+    cxn, cyn = torch.autograd.grad(loss(xl, yl), [xl, yl])
+    (w1, w2, w3), (bb1, bb2, b3) = gam["W"], gam["b"]
+    weights = tuple(t.detach() for t in (w1, bb1, w2, bb2, w3))
+    ktabs = {"cc": R._fold_b3(tabs["cc"].detach(), b3.detach()),
+             "pc": tabs["pc"].detach(), "zc": tabs["zc"].detach(),
+             "lo": tabs["lo"], "hi": tabs["hi"]}
+    out = b2(op.spec, weights, ktabs, dw, j, pxs.detach().contiguous(),
+             pys.detach().contiguous(), cxn.contiguous(), cyn.contiguous())
+    dw1, db1, dw2, db2, dw3, db3, dy0, dcc, dpc, dzc = R.b2_cotangents(
+        out, op.spec, dw.shape[0])
+    ga = [g.reshape(t.shape) for g, t in zip(
+        (dw1, dw2, dw3, db1, db2, db3, dy0, dcc, dpc, dzc), leaves)]
+    rel_a, abs_a, leaf_a = grad_errors(ga, gp)
+    print(f"B2 on the plain trajectory: grad global-norm rel {rel_a:.3e} "
+          f"(tol {GRAD_REL_TOL}, per leaf: "
+          + ", ".join(f"{n} {r:.1e}" for n, r in leaf_a.items())
+          + f"), max abs {abs_a:.3e}")
+    require_grads("B2 on the plain trajectory", rel_a, leaf_a)
+    # (b): B1 then B2, off the straddling paths
+    with torch.no_grad():
+        kxn, _, kxs, kys = b1(op.spec, weights, y0.detach(), ktabs, dw, j,
+                              save=True)
+    skip = straddling_paths(model, tabs, (kxn, kxs, kys),
+                            (xp.detach(), pxs.detach(), pys.detach()))
+    keep = (~skip).to(torch.float32)
+    n_skip = int(skip.sum())
+    masked = lambda x, y: torch.sum(keep * torch.square(y - model.payoff(x))
+                                    ) / x.shape[0]
+    gk = torch.autograd.grad(masked(*op(gam, y0, tabs, dw, j)), leaves)
+    gk2 = torch.autograd.grad(masked(*op(gam, y0, tabs, dw, j)), leaves)
+    gpm = torch.autograd.grad(masked(xp, yp), leaves)
+    same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+    rel_b, abs_b, leaf_b = grad_errors(gk, gpm)
+    unmasked = grad_errors(torch.autograd.grad(
+        loss(*op(gam, y0, tabs, dw, j)), leaves), gp)[0]
+    print(f"B1 + B2 vs autograd of plain over {xp.shape[0] - n_skip} paths "
+          f"({n_skip} straddle a discontinuity; over all: rel "
+          f"{unmasked:.3e}): grad global-norm rel {rel_b:.3e} (tol "
+          f"{GRAD_REL_TOL}, per leaf: "
+          + ", ".join(f"{n} {r:.1e}" for n, r in leaf_b.items())
+          + f"), max abs {abs_b:.3e}; rerun bit-identical: {same}")
+    require_grads("B1 + B2", rel_b, leaf_b)
+    if n_skip > 0.01 * xp.shape[0]:
+        fail(f"{n_skip} of {xp.shape[0]} paths straddle a discontinuity: "
+             "the kernels' forward leaves the plain version's")
+    if not same:
+        fail("two B2 runs on the same inputs differ")
+    return {"max_abs_err": max(abs_a, abs_b), "rel_err": max(rel_a, rel_b),
+            "straddling_paths": n_skip, "rel_err_all_paths": unmasked}
+
+
+def check_kernels(op, model, inputs) -> dict:
+    """Phase 2: each kernel of ``op``'s width against the plain rollout on
+    the same inputs: B1's (x_N, y_N) and loss; B2's gradients, and B2 twice
+    bit for bit.  The specialised B2 through ``FusedRollout`` over all
+    paths, as a whole (each leaf printed); the wide B2 as
+    ``check_wide_grads`` says, as a whole and leaf by leaf (W1, W2, W3, b1,
+    b2, b3, y0, cc, pc, zc), so that a wrong leaf the global norm would
+    hide fails."""
+    b2 = rollout_pair(op)[1]
     gam, y0, tabs, dw, j = inputs
     loss = lambda x, y: torch.mean(torch.square(y - model.payoff(x)))
     with torch.no_grad():
@@ -443,25 +636,24 @@ def check_kernels(op, model, inputs) -> dict:
     if not (math.isfinite(fwd_err) and fwd_err <= FWD_ABS_TOL
             and loss_rel <= LOSS_REL_TOL):
         fail("B1 disagrees with rollout_plain")
+    if op.spec.hidden not in kernel_module(op).KERNEL_WIDTHS:
+        return {"B1": {"max_abs_err": fwd_err, "rel_err": loss_rel},
+                "B2": check_wide_grads(op, model, inputs, loss)}
 
     leaves = grad_leaves(gam, y0, tabs)
-    before = R.b2_backward.launches
+    before = b2.launches
     gk = torch.autograd.grad(loss(*op(gam, y0, tabs, dw, j)), leaves)
     gk2 = torch.autograd.grad(loss(*op(gam, y0, tabs, dw, j)), leaves)
-    if R.b2_backward.launches - before != 2:
-        fail("the gradient check did not run kernel B2")
+    if b2.launches - before != 2:
+        fail(f"the gradient check did not run kernel {b2.__name__}")
     gp = torch.autograd.grad(loss(*op.plain(gam, y0, tabs, dw, j)), leaves)
-    num = math.sqrt(sum(float(torch.sum((a - b) ** 2))
-                        for a, b in zip(gk, gp)))
-    den = math.sqrt(sum(float(torch.sum(b ** 2)) for b in gp))
-    grad_rel = num / den
-    grad_abs = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    grad_rel, grad_abs, leaf_rel = grad_errors(gk, gp)
     same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+    each = ", ".join(f"{n} {r:.1e}" for n, r in leaf_rel.items())
     print(f"B2 vs autograd of plain: grad global-norm rel {grad_rel:.3e} "
-          f"(tol {GRAD_REL_TOL}), max abs {grad_abs:.3e}; rerun "
-          f"bit-identical: {same}")
-    if not (math.isfinite(grad_rel) and grad_rel <= GRAD_REL_TOL):
-        fail("B2 gradients disagree with autograd of rollout_plain")
+          f"(tol {GRAD_REL_TOL}; per leaf: {each}), max abs "
+          f"{grad_abs:.3e}; rerun bit-identical: {same}")
+    require_grads("B2", grad_rel, {})
     if not same:
         fail("two B2 runs on the same inputs differ")
     return {"B1": {"max_abs_err": fwd_err, "rel_err": loss_rel},
@@ -469,10 +661,12 @@ def check_kernels(op, model, inputs) -> dict:
 
 
 def kernel_calls(op, inputs):
-    """(B1 call, B2 call) of ``op``'s kernels on detached ``inputs``, as
-    training launches them: B1 saving its residuals, B2 over them with unit
-    cotangents.  Each call returns the kernel's outputs."""
+    """(B1 call, B2 call) of ``op``'s kernels (the pair of its width) on
+    detached ``inputs``, as training launches them: B1 saving its
+    residuals, B2 over them with unit cotangents.  Each call returns the
+    kernel's outputs."""
     R = kernel_module(op)
+    k1, k2 = rollout_pair(op)
     gam, y0, tabs, dw, j = inputs
     (w1, w2, w3), (b1, b2, b3) = gam["W"], gam["b"]
     weights = tuple(t.detach() for t in (w1, b1, w2, b2, w3))
@@ -480,29 +674,28 @@ def kernel_calls(op, inputs):
              "pc": tabs["pc"].detach(), "zc": tabs["zc"].detach(),
              "lo": tabs["lo"], "hi": tabs["hi"]}
     y0d = y0.detach()
-    fwd = lambda: R.b1_forward(op.spec, weights, y0d, ktabs, dw, j,
-                               save=True)
+    fwd = lambda: k1(op.spec, weights, y0d, ktabs, dw, j, save=True)
     _, _, xs, ys = fwd()
     cot = torch.ones_like(xs[0])
-    return fwd, lambda: R.b2_backward(op.spec, weights, ktabs, dw, j, xs, ys,
-                                      cot, cot)
+    return fwd, lambda: k2(op.spec, weights, ktabs, dw, j, xs, ys, cot, cot)
 
 
-def time_kernels(op, inputs) -> dict:
+def time_kernels(op, inputs, plain_reps: int = 5) -> dict:
     """Each kernel's device time and its plain version's, at the inputs'
     shapes: B1 with residuals as in training against the plain forward
     under autograd, B2 against autograd's backward of the plain forward
-    (one graph, run again and again)."""
+    (one graph, run again and again, ``plain_reps`` times)."""
     gam, y0, tabs, dw, j = inputs
     fwd, bwd = kernel_calls(op, inputs)
     out = {"B1": {"ms": kernel_ms(fwd, reps=20)},
            "B2": {"ms": kernel_ms(bwd, reps=20)}}
     leaves = grad_leaves(gam, y0, tabs)
     plain_loss = lambda: torch.sum(sum(op.plain(gam, y0, tabs, dw, j)))
-    out["B1"]["plain_ms"] = kernel_ms(plain_loss, reps=5)
+    out["B1"]["plain_ms"] = kernel_ms(plain_loss, reps=plain_reps)
     loss = plain_loss()
     out["B2"]["plain_ms"] = kernel_ms(
-        lambda: torch.autograd.grad(loss, leaves, retain_graph=True), reps=5)
+        lambda: torch.autograd.grad(loss, leaves, retain_graph=True),
+        reps=plain_reps)
     return out
 
 
@@ -704,10 +897,12 @@ def profile_steps(step, gen, step_ms: float, steps: int = 3):
 
 
 def train_path(solver_kw: dict, per_step: dict, per_eval: dict, counters,
-               facade: str = "Global", steps: int = 10, epochs: int = 2):
+               facade: str = "Global", steps: int = 10, epochs: int = 2,
+               hidden: int = HIDDEN):
     """Phase 3: train one path through the facade ``facade`` (a key of
-    ``SOLVER_CLASSES``) at batch 2^17 for ``epochs`` outer epochs of
-    ``steps`` steps, with every kernel's launch counter set to 0 just
+    ``SOLVER_CLASSES``) with hidden (``hidden``, ``hidden``) at batch 2^17
+    for ``epochs`` outer epochs of ``steps`` steps, with every kernel's
+    launch counter set to 0 just
     before and read just after; fails unless each kernel launched exactly
     ``per_step`` times per training step plus ``per_eval`` times per
     epoch's validation evaluation (a kernel absent from both: never).
@@ -715,7 +910,7 @@ def train_path(solver_kw: dict, per_step: dict, per_eval: dict, counters,
     from deepfbsdejsolvers_torch.solvers.api import SOLVER_CLASSES
     from deepfbsdejsolvers_torch.solvers.train import make_generator
 
-    trainer = SOLVER_CLASSES[facade](lrate=4e-4, hidden=(HIDDEN, HIDDEN),
+    trainer = SOLVER_CLASSES[facade](lrate=4e-4, hidden=(hidden, hidden),
                                      seed=SEED, **solver_kw)
     y0_init = float(trainer.core.y0_estimate(trainer.core.init_params(
         make_generator("cpu", SEED, 0))).detach())
@@ -1087,6 +1282,57 @@ def cli_phases(counters, tmp: str) -> dict:
     return out
 
 
+def bench_phases(counters) -> dict:
+    """Phase 7: the bench through the CLI (``cli.main(["bench", ...])``, what
+    ``python -m deepfbsdejsolvers_torch bench`` runs) in this process, a
+    cell of ``BENCH_CELLS`` a run, every launch counter set to 0 just before
+    and read just after: exit 0, bench.py's one JSON line (its keys, the
+    cell's metric, a finite positive value), and exactly the cell's
+    launches.  Returns each cell's JSON, seconds and launches."""
+    import contextlib
+    import io
+
+    from deepfbsdejsolvers_torch.experiments import cli
+
+    t_start = time.perf_counter()
+    out = {}
+    for label, argv, want in BENCH_CELLS:
+        for fn in counters.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench", *argv])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: fn.launches for k, fn in counters.items()}
+        want = {k: want.get(k, 0) for k in counters}
+        lines = buf.getvalue().strip().splitlines()
+        cut = (" (cut from bench.py's --inner 10 --rounds 3)"
+               if "--inner" in argv else "")
+        print(f"bench {label}: `bench {' '.join(argv)}` exit {rc}, "
+              f"{seconds:.1f} s, launches "
+              f"{ {k: n for k, n in launched.items() if n} }{cut}")
+        print(lines[-1] if lines else "(no output)")
+        if rc != 0 or not lines:
+            fail(f"bench {label} exited {rc}")
+        rec = json.loads(lines[-1])
+        model = argv[argv.index("--model") + 1] if "--model" in argv \
+            else "merton"
+        if (list(rec) != ["metric", "value", "unit", "vs_baseline"]
+                or rec["metric"] != f"{model}_global_train_throughput"
+                or not (math.isfinite(rec["value"]) and rec["value"] > 0)):
+            fail(f"bench {label} printed {rec}")
+        if launched != want:
+            fail(f"bench {label} launched {launched}, the code implies "
+                 f"{want}")
+        out[label] = {"argv": argv, "json": rec, "seconds": seconds,
+                      "launches": {k: n for k, n in launched.items() if n}}
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"bench phases: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1119,6 +1365,8 @@ def main() -> int:
     occupancy_by = {}
     for name, widths, pieces in (
             ("rollout_bwd", (HIDDEN, 8), (PIECES,)),
+            ("rollout_wide_fwd", (32, 64, 128), ()),
+            ("rollout_wide_bwd", (32, 64, 128), ()),
             ("sweep_fwd", (HIDDEN, 8), ()), ("sweep_bwd", (HIDDEN, 8), ()),
             ("sweep_wide_fwd", (32, 64, 128), ()),
             ("sweep_wide_bwd", (32, 64, 128), ())):
@@ -1190,21 +1438,46 @@ def main() -> int:
             result = check_sweep(*sweep_inputs(h, node_set, batch, tag,
                                                n_mc or N_MC, form=form))
             wide_check[(h, case)] = result
+    # the wide rollout at the same widths, results by (H, (N, B))
+    wide_roll_check = {}
+    for h in WIDE_WIDTHS:
+        for case in WIDE_ROLLOUT_CHECKS:
+            n, batch = case
+            if batch == "walk":
+                batch = 5 * R.b2_wide_blocks(2**30, h) // 2 * R.wide_tile(
+                    h) - 91
+            print(f"wide rollout check at H={h}, N={n}, B={batch} (B2w: "
+                  f"{R.b2_wide_blocks(batch, h)} blocks walk "
+                  f"{-(-batch // R.wide_tile(h))} tiles):")
+            m, inputs = rollout_case(model, kw, h, n, batch)
+            wide_roll_check[(h, case)] = check_kernels(
+                R.FusedRolloutOp(m, h, n_pieces=PIECES), m, inputs)
+            del inputs
     op = R.FusedRolloutOp(model, HIDDEN, n_pieces=PIECES)
 
     # 3. the main paths: training through the facade
     counters = {"B1": R.b1_forward, "B2": R.b2_backward,
                 "B3": S.b3_forward, "B4": S.b4_backward,
-                "B3w": S.b3_wide_forward, "B4w": S.b4_wide_backward}
+                "B3w": S.b3_wide_forward, "B4w": S.b4_wide_backward,
+                "B1w": R.b1_wide_forward, "B2w": R.b2_wide_backward}
     print("speed path (hoisted tables, fused rollout):")
     trainer, launches = train_path(dict(kw, math_model=model),
                                    {"B1": 1, "B2": 1}, {"B1": 1}, counters)
+    # the same at the wide widths: B1w/B2w, the specialised pair never
+    wide_trainers, wide_launches = {}, {}
+    for h in WIDE_TRAIN_WIDTHS:
+        print(f"speed path at hidden ({h}, {h}) (fused rollout, B1w/B2w), "
+              f"2 × 2 steps:")
+        wide_trainers[h], wide_launches[h] = train_path(
+            dict(kw, math_model=model), {"B1w": 1, "B2w": 1}, {"B1w": 1},
+            counters, steps=2, epochs=2, hidden=h)
     print("parity path (direct 49-node sweep, sweep_impl='pallas'):")
     parity, launches_p = train_path(
         dict(math_model=make_merton_default(), sweep_impl="pallas",
              device="cuda"),
         {"B3": N_STEPS, "B4": N_STEPS}, {"B3": N_STEPS}, counters)
-    by_path = {"speed": dict(launches), "parity": launches_p}
+    by_path = {"speed": dict(launches), "parity": launches_p,
+               **{f"speed_{h}": n for h, n in wide_launches.items()}}
     launches.update({k: launches_p[k] for k in ("B3", "B4")})
     schemes = {}
     for scheme, (facade, impl, b3, b4, b3_eval) in SCHEMES.items():
@@ -1273,6 +1546,21 @@ def main() -> int:
                               f"{v['plain_ms']:.3f})"
                               for k, v in times_wide[(h, m)].items()))
 
+    # the wide rollout at the speed path's shapes, and its training step
+    times_wide_roll = {}
+    for h in WIDE_WIDTHS:
+        m, inputs = rollout_case(model, kw, h, N_STEPS, TRAIN_BATCH)
+        # the plain backward takes ~3.3 s at every width here (the piece
+        # gather's backward): one timed call after the warm-up
+        times_wide_roll[h] = time_kernels(
+            R.FusedRolloutOp(m, h, n_pieces=PIECES), inputs, plain_reps=1)
+        del inputs
+        print(f"wide rollout at H={h}, N={N_STEPS}, B={TRAIN_BATCH}: "
+              + ", ".join(f"{k}w {v['ms']:.4f} ms (plain {v['plain_ms']:.3f})"
+                          for k, v in times_wide_roll[h].items()))
+    wide_step_ms = {h: time_step(t, 60 + h, f"speed at hidden ({h}, {h})")[0]
+                    for h, t in wide_trainers.items()}
+
     # 5. the smart-grid MFG model: no kernel on its paths
     mfg = mfg_phases(counters)
 
@@ -1288,7 +1576,14 @@ def main() -> int:
         by_path[f"cli_{cmd}_{width}"] = {
             k: cli_out[f"{cmd}_{width}"].get(k, 0) for k in counters}
 
-    # 7. one accuracy gate through the port's runner
+    # 7. the bench, through the CLI in this process
+    bench = bench_phases(counters)
+    for label, cell in bench.items():
+        if label != "seconds":
+            by_path[f"bench_{label}"] = {k: cell["launches"].get(k, 0)
+                                         for k in counters}
+
+    # 8. one accuracy gate through the port's runner
     print(f"gate {GATE} (3 seeds × 2400 steps, batch 8192):")
     entry = gates.build_registry()[GATE]
     for fn in counters.values():
@@ -1400,14 +1695,51 @@ def main() -> int:
             "bound_by": main_row["bound_by"], "library_ms": None,
             "shape": {"M": N_QUAD, "B": TRAIN_BATCH, "H": 64},
             "by_width": by_width})
+    # the wide rollout: the main row at hidden 64 (the wide speed path's
+    # shapes, its error from the check at 2^17 + 37 paths), every width
+    # under by_width (errors from the check at 2^14 + 37)
+    wide_paths = [f"speed_{h}" for h in WIDE_TRAIN_WIDTHS]
+    for k, src, tpu, fn in (
+            ("B1w", "rollout_wide_fwd", "pallas_rollout.py:311", "fwd_kernel"),
+            ("B2w", "rollout_wide_bwd", "pallas_rollout.py:352", "bwd_kernel")):
+        kind = k[:2]
+        by_width = {}
+        for h in WIDE_WIDTHS:
+            hp = R.wide_class(h)
+            b_ms, b_by = bound(kind, N_STEPS, TRAIN_BATCH, h, PIECES)
+            t = times_wide_roll[h][kind]
+            by_width[h] = {
+                "HP": hp, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                **wide_roll_check[(h, WIDE_ROLLOUT_CHECKS[0])][kind],
+                "ptxas": ptxas.get(f"{src} {fn}<{hp}>"),
+                **occupancy_by[f"{src}<{hp}>"]}
+            print(f"{k} at H={h} (HP {hp}): {t['ms']:.4f} ms (plain "
+                  f"{t['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+        main_row = by_width[64]
+        main_err = wide_roll_check[(64, WIDE_ROLLOUT_CHECKS[-1])][kind]
+        record.append({
+            "name": f"{k} {src}", "route": "cuda",
+            "source": f"deepfbsdejsolvers_torch/csrc/{src}.cu",
+            "replaces": f"deepfbsdejsolvers_tpu/ops/{tpu}",
+            "launches": sum(by_path[p][k] for p in wide_paths),
+            "launches_by_path": {p: by_path[p][k] for p in wide_paths},
+            "max_abs_err": main_err["max_abs_err"],
+            "rel_err": main_err["rel_err"], "check": "pass",
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "shape": {"N": N_STEPS, "B": TRAIN_BATCH, "H": 64, "P": PIECES},
+            "by_width": by_width})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": record, "train_step_ms": step_ms,
                       "paths_steps_per_s": rate,
                       "parity_train_step_ms": pstep_ms,
                       "parity_paths_steps_per_s": prate,
                       "scheme_train_step_ms": scheme_ms,
-                      "vg_train_step_ms": vg_ms, "mfg": mfg,
-                      "cli": cli_out, "gate": gate}))
+                      "vg_train_step_ms": vg_ms,
+                      "wide_train_step_ms": wide_step_ms, "mfg": mfg,
+                      "cli": cli_out, "bench": bench, "gate": gate}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,13 @@ vg            the seven-method pricing sweep on the Variance-Gamma model
               (mainVG)
 mfg-compare   the five-method MFG comparison (mainMFGComparison)
 mfg-poa       the Price-of-Anarchy case sweep (mainMFGPoA)
+bench         the training-throughput benchmark (the JAX package's
+              bench.py), in this process (experiments/bench.py)
 
 One flag more, ``--device`` (``cuda`` by default; ``cpu`` runs on the CPU):
 without a card and without ``--device cpu`` the CLI exits with status 2.
-``--dataParallel`` is parsed and refused (ROADMAP Queue 1, item 12).
+``--dataParallel`` is parsed and refused (ROADMAP Queue 1, item 12), and so
+are the bench options the port has not (``experiments/bench.py``).
 """
 
 from __future__ import annotations
@@ -27,10 +30,6 @@ import torch
 from deepfbsdejsolvers_torch.experiments.configs import (
     MFG_METHODS, PRICING_METHODS, MertonConfig, MFGComparisonConfig,
     MFGPoAConfig, RunIO, VGConfig)
-
-_EPILOG = ("The JAX package's 'bench' subcommand is not here yet: the "
-           "port's benchmark entry point is ROADMAP Queue 1, item 7a.")
-
 
 def _add_io_flags(p: argparse.ArgumentParser):
     p.add_argument("--outdir", type=str, default=None,
@@ -195,8 +194,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deepfbsdejsolvers_torch",
         description="Deep FBSDE solvers with jumps, in PyTorch on one CUDA "
-                    "card",
-        epilog=_EPILOG)
+                    "card")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("merton", help="Merton pricing sweep (mainMerton)")
@@ -229,12 +227,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--piList", type=float, nargs="*",
                    default=[0.0, 0.1, 0.5, 0.95])
     _add_io_flags(p)
+
+    p = sub.add_parser("bench", help="training-throughput benchmark "
+                                     "(bench.py)")
+    p.add_argument("--batch", type=int, default=2**17)
+    p.add_argument("--inner", type=int, default=10)
+    p.add_argument("--rounds", type=int, default=3)
+    p.add_argument("--model", type=str, default="merton",
+                   choices=["merton", "vg", "mfg"])
+    p.add_argument("--parity", action="store_true",
+                   help="reference-faithful numerics instead of the speed "
+                        "config (see experiments/bench.py)")
+    p.add_argument("--compensator", type=str, default="quadrature",
+                   choices=["quadrature", "mc"])
+    p.add_argument("--sweep", type=str, default=None,
+                   choices=["xla", "pallas"])
+    p.add_argument("--rng", type=str, default="threefry",
+                   choices=["threefry", "rbg"])
+    p.add_argument("--fused", action="store_true",
+                   help="fused whole-rollout kernels B1/B2 for the merton "
+                        "speed config")
+    p.add_argument("--fusedPrecision", type=str, default=None,
+                   choices=["default", "highest"])
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (the default) or 'cpu'")
     return parser
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.dataParallel:
+    if getattr(args, "dataParallel", False):
         print("deepfbsdejsolvers_torch: --dataParallel is not ported yet "
               "(ROADMAP Queue 1, item 12)", file=sys.stderr)
         return 2
@@ -245,12 +267,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     from deepfbsdejsolvers_torch.utils.debug import nan_guard
 
-    guard = nan_guard() if args.debugNans else contextlib.nullcontext()
+    guard = (nan_guard() if getattr(args, "debugNans", False)
+             else contextlib.nullcontext())
     with guard:
-        return _dispatch(args, not args.quiet)
+        return _dispatch(args, not getattr(args, "quiet", False))
+
+
+def _bench(args) -> int:
+    """The bench subcommand: ``experiments/bench.py``'s run of the global
+    scheme, after its argument checks and refusals (exit status 2)."""
+    from deepfbsdejsolvers_torch.experiments import bench
+
+    why = (bench.usage_error(args.parity, args.model, args.fused, "global",
+                             args.sweep, args.fusedPrecision)
+           or bench.refusal(rng=args.rng,
+                            fused_precision=args.fusedPrecision))
+    if why:
+        print(f"deepfbsdejsolvers_torch bench: {why}", file=sys.stderr)
+        return 2
+    return bench.run(args.batch, args.inner, args.rounds, args.compensator,
+                     args.parity, args.model, args.sweep, args.fused,
+                     "global", args.device)
 
 
 def _dispatch(args, verbose: bool) -> int:
+    if args.cmd == "bench":
+        return _bench(args)
     if args.cmd in ("merton", "vg"):
         from deepfbsdejsolvers_torch.experiments.pricing import run_pricing
 

@@ -25,7 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("rollout_fwd", "rollout_bwd", "sweep_fwd", "sweep_bwd",
+KERNEL_SOURCES = ("rollout_fwd", "rollout_bwd", "rollout_wide_fwd",
+                  "rollout_wide_bwd", "sweep_fwd", "sweep_bwd",
                   "sweep_wide_fwd", "sweep_wide_bwd")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

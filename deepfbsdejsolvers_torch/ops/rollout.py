@@ -15,13 +15,19 @@ pure-jump regime (the Variance-Gamma model) the Γ net's input is
 ``rollout_plain`` is that loop written step by step in PyTorch and
 differentiated by autograd, in either regime: the CPU path, the eager path
 of the pure-jump model on the card, and the oracle the kernels are held
-against.  The kernels take the Merton form only.  ``FusedRolloutOp`` is the operator the solver calls: on a
-CPU tensor it runs ``rollout_plain``; on a CUDA tensor it runs the whole
-forward as one kernel (B1, ``csrc/rollout_fwd.cu``) and, under autograd, the
-whole backward as one kernel of a bounded number of blocks plus a
-fixed-order reduction (B2, ``csrc/rollout_bwd.cu``), behind the
-``FusedRollout`` autograd function.
-There is no fallback from the kernels to the plain loop on the card.
+against.  The kernels take the Merton form only.  ``FusedRolloutOp`` is
+the operator the solver calls: on a CPU tensor it runs ``rollout_plain``;
+on a CUDA tensor it runs the whole forward as one kernel (B1) and, under
+autograd, the whole backward as one kernel of a bounded number of blocks
+plus a fixed-order reduction (B2), behind the ``FusedRollout`` autograd
+function.  The kernels come in two builds: specialised at the hidden widths
+``KERNEL_WIDTHS`` (8 and 21; ``csrc/rollout_fwd.cu``,
+``csrc/rollout_bwd.cu``), and wide at every other width up to
+``ROLLOUT_MAX_WIDTH`` (``csrc/rollout_wide_fwd.cu``,
+``csrc/rollout_wide_bwd.cu``, zero-padded to a width class of 32, 64 or
+128), each with its own launch count; ``rollout_kernels`` picks the pair of
+a width.  There is no fallback from the kernels to the plain loop on the
+card.
 """
 
 from __future__ import annotations
@@ -46,6 +52,28 @@ KERNEL_COEFFS = 8
 # buffer (csrc/rollout_bwd.cu).
 _B2_TILE = 128
 _B2_MAX_BLOCKS = 4 * 132
+# The widest head the wide kernels take: the JAX package's Pallas rollout
+# and sweep take two equal tanh layers up to 128 wide.  The width classes
+# of the wide kernels of both (csrc/sweep_wide.cuh, csrc/rollout_wide.cuh),
+# and the most blocks the wide B2 launches, two per SM of an H100.
+ROLLOUT_MAX_WIDTH = 128
+_WIDE_CLASSES = (32, 64, 128)
+_WIDE_B2_MAX_BLOCKS = 2 * 132
+
+
+def wide_class(h: int) -> int:
+    """The width class HP the wide kernels pad hidden width ``h`` to."""
+    for hp in _WIDE_CLASSES:
+        if 1 <= h <= hp:
+            return hp
+    raise ValueError(f"the wide kernels take hidden widths 1.."
+                     f"{_WIDE_CLASSES[-1]}, got {h}")
+
+
+def wide_tile(h: int) -> int:
+    """Paths per block of the wide kernels at hidden width ``h``: eight
+    warps of 16·32 / HP paths each."""
+    return 8 * 16 * 32 // wide_class(h)
 
 
 def table_eval(coef: torch.Tensor, x: torch.Tensor, lo: torch.Tensor,
@@ -58,7 +86,7 @@ def table_eval(coef: torch.Tensor, x: torch.Tensor, lo: torch.Tensor,
 
 def rollout_plain(model, gam_params, y0, tables, dw, j,
                   time_scale: float = 1.0, activation=torch.tanh,
-                  x_prop: bool = False):
+                  x_prop: bool = False, residuals: bool = False):
     """(x_N, y_N) of the hoisted global rollout, step by step.
 
     ``tables`` holds "lo", "hi" (N,) and "cc", "pc", "zc" per step; dw and j
@@ -66,12 +94,16 @@ def rollout_plain(model, gam_params, y0, tables, dw, j,
     the model's own callables (f, step), so autograd of this function is the
     reference gradient.  ``x_prop`` is the pure-jump regime: the Γ net reads
     (t, x, x·J), and there is no Z table, the model's step takes no dW, and
-    dw is the zero-width (N, 0) placeholder."""
+    dw is the zero-width (N, 0) placeholder.  With ``residuals`` it returns
+    (x_N, y_N, xs, ys), xs and ys the (N, B) residuals kernel B1 saves for
+    B2: x before each step, y after each step's update."""
     n, batch = j.shape
     x = model.init_x(batch, j.device)
     y = y0 * torch.ones((batch,), dtype=torch.float32, device=j.device)
     dt = model.dt
+    xs, ys = [], []
     for i in range(n):
+        xs.append(x)
         lo, hi = tables["lo"][i], tables["hi"][i]
         t = torch.full_like(x, float(i)) * time_scale
         feat = x * j[i] if x_prop else j[i]
@@ -80,11 +112,15 @@ def rollout_plain(model, gam_params, y0, tables, dw, j,
         comp = table_eval(tables["cc"][i], x, lo, hi)
         y = y - dt * model.f(y) + gam - comp
         price = table_eval(tables["pc"][i], x, lo, hi)
+        if not x_prop:
+            y = y + table_eval(tables["zc"][i], x, lo, hi) * dw[i]
+        ys.append(y)
         if x_prop:
             x = model.step(i, x, j[i], y, price=price)
-            continue
-        y = y + table_eval(tables["zc"][i], x, lo, hi) * dw[i]
-        x = model.step(i, x, dw[i], j[i], y, price=price)
+        else:
+            x = model.step(i, x, dw[i], j[i], y, price=price)
+    if residuals:
+        return x, y, torch.stack(xs), torch.stack(ys)
     return x, y
 
 
@@ -140,11 +176,14 @@ class KernelSpec:
     x0: float
     dt: float
 
-    def scalars(self) -> list:
-        """The float arguments of both C entry points, in order."""
+    def scalars(self, wide: bool = False) -> list:
+        """The float arguments of the C entry points, in order: the
+        specialised kernels take the growth 1 + r·dt, the wide kernels r·dt
+        (csrc/rollout_wide.cuh ``Consts``)."""
         f = ctypes.c_float
-        return [f(self.time_scale), f(1.0 + self.r * self.dt), f(self.a_lin),
-                f(self.dt), f(self.sigma), f(self.drift)]
+        r_dt = self.r * self.dt
+        return [f(self.time_scale), f(r_dt if wide else 1.0 + r_dt),
+                f(self.a_lin), f(self.dt), f(self.sigma), f(self.drift)]
 
 
 def _check(name, t, shape, device):
@@ -164,24 +203,34 @@ def _check(name, t, shape, device):
 
 def _check_sizes(n: int, batch: int, h: int, p: int) -> None:
     """The kernels index in 32-bit ints the path-steps (N·B), the paths up
-    to the end of their last 128-wide tile, and B2's partial rows of
-    H² + 6H + 1 + N·3·P·D floats."""
+    to the end of their last tile (at most 128 wide), and B2's partial rows
+    of H² + 6H + 1 + N·3·P·D floats."""
     if (n * batch >= 2**31 or batch > 2**31 - _B2_TILE
             or b2_partial_shape(n, batch, h, p)[1] >= 2**31):
         raise ValueError("the rollout does not fit the kernels' 32-bit "
                          "indices")
 
 
-def _check_inputs(spec, weights, tables, dw, j):
-    """Shared validation of both kernels' inputs; returns (n, batch)."""
+def _check_inputs(spec, weights, tables, dw, j, wide: bool = False):
+    """Shared validation of the kernels' inputs (the specialised kernels',
+    or with ``wide`` the wide kernels'); returns (n, batch)."""
     if dw.device.type != "cuda":
         raise ValueError(f"the rollout kernels take CUDA tensors, got "
                          f"{dw.device}")
+    h = spec.hidden
+    if wide:
+        wide_class(h)
+        if h in KERNEL_WIDTHS:
+            raise ValueError(f"hidden widths {KERNEL_WIDTHS} have their "
+                             f"specialised rollout kernels, got {h}")
+    elif h not in KERNEL_WIDTHS:
+        raise ValueError(f"the specialised rollout kernels are built for "
+                         f"hidden widths {KERNEL_WIDTHS}, got {h}")
     if dw.ndim != 2 or dw.shape[0] < 1 or dw.shape[1] < 1:
         raise ValueError(f"dw: expected (N, B) with N, B >= 1, got "
                          f"{tuple(dw.shape)}")
     n, batch = dw.shape
-    h, p, d, dev = spec.hidden, spec.n_pieces, KERNEL_COEFFS, dw.device
+    p, d, dev = spec.n_pieces, KERNEL_COEFFS, dw.device
     _check_sizes(n, batch, h, p)
     _check("j", j, (n, batch), dev)
     _check("dw", dw, (n, batch), dev)
@@ -211,16 +260,13 @@ def _lib(name, nptr, nint, nfloat):
     return fn
 
 
-def b1_forward(spec: KernelSpec, weights, y0, tables, dw, j, save: bool):
-    """Kernel B1: the whole N-step forward, one thread per path.
-
-    ``weights`` = (W1, b1, W2, b2, W3) with b3 already folded into
-    ``tables["cc"]``.  Returns (x_N, y_N, xs, ys); xs (x before each step)
-    and ys (y after each step's update) are (N, B) residuals for B2, or None
-    when ``save`` is false."""
-    n, batch = _check_inputs(spec, weights, tables, dw, j)
+def _launch_fwd(name: str, wide: bool, spec, weights, y0, tables, dw, j,
+                save: bool):
+    """Launch the forward kernel of library ``name``; returns (x_N, y_N,
+    xs, ys)."""
+    n, batch = _check_inputs(spec, weights, tables, dw, j, wide=wide)
     _check("y0", y0, (), dw.device)
-    fn = _lib("rollout_fwd", 17, 4, 7)
+    fn = _lib(name, 17, 4, 7)
     kw = dict(dtype=torch.float32, device=dw.device)
     xn = torch.empty((batch,), **kw)
     yn = torch.empty((batch,), **kw)
@@ -231,15 +277,42 @@ def b1_forward(spec: KernelSpec, weights, y0, tables, dw, j, save: bool):
         rc = fn(*map(_ptr, (dw, j, tables["cc"], tables["pc"], tables["zc"],
                             tables["lo"], tables["hi"], *weights, y0, xn, yn,
                             xs, ys)),
-                n, batch, spec.n_pieces, spec.hidden, *spec.scalars(),
+                n, batch, spec.n_pieces, spec.hidden, *spec.scalars(wide),
                 ctypes.c_float(spec.x0), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"rollout_fwd: CUDA error {rc} at launch")
-    b1_forward.launches += 1
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     return xn, yn, xs, ys
 
 
+def b1_forward(spec: KernelSpec, weights, y0, tables, dw, j, save: bool):
+    """Kernel B1: the whole N-step forward, one thread per path.
+
+    ``weights`` = (W1, b1, W2, b2, W3) with b3 already folded into
+    ``tables["cc"]``.  Returns (x_N, y_N, xs, ys); xs (x before each step)
+    and ys (y after each step's update) are (N, B) residuals for B2, or None
+    when ``save`` is false."""
+    out = _launch_fwd("rollout_fwd", False, spec, weights, y0, tables, dw, j,
+                      save)
+    b1_forward.launches += 1
+    return out
+
+
 b1_forward.launches = 0
+
+
+def b1_wide_forward(spec: KernelSpec, weights, y0, tables, dw, j,
+                    save: bool):
+    """Kernel B1 at every hidden width up to ``ROLLOUT_MAX_WIDTH`` bar
+    ``KERNEL_WIDTHS``: each warp carries a few paths through the N steps,
+    its lanes sharing the hidden units.  Arguments and returns as
+    ``b1_forward``."""
+    out = _launch_fwd("rollout_wide_fwd", True, spec, weights, y0, tables,
+                      dw, j, save)
+    b1_wide_forward.launches += 1
+    return out
+
+
+b1_wide_forward.launches = 0
 
 
 def b2_blocks(batch: int) -> int:
@@ -248,11 +321,47 @@ def b2_blocks(batch: int) -> int:
     return min(-(-batch // _B2_TILE), _B2_MAX_BLOCKS)
 
 
+def b2_wide_blocks(batch: int, h: int) -> int:
+    """Thread blocks of the wide B2 for ``batch`` paths at hidden width
+    ``h``: one per tile up to a fixed maximum, each walking its tiles in
+    order."""
+    return min(-(-batch // wide_tile(h)), _WIDE_B2_MAX_BLOCKS)
+
+
 def b2_partial_shape(n: int, batch: int, h: int, p: int):
-    """(blocks, floats per block) of B2's partial buffer: the Γ head's
-    cotangents, ȳ0 and the N steps' table cotangents of each block,
-    whatever the batch."""
-    return b2_blocks(batch), h * h + 6 * h + 1 + n * 3 * p * KERNEL_COEFFS
+    """(blocks, floats per block) of the partial buffer of the B2 of hidden
+    width ``h`` (the specialised one at ``KERNEL_WIDTHS``, the wide one
+    elsewhere): the Γ head's cotangents, ȳ0 and the N steps' table
+    cotangents of each block, whatever the batch."""
+    blocks = b2_blocks(batch) if h in KERNEL_WIDTHS else b2_wide_blocks(
+        batch, h)
+    return blocks, h * h + 6 * h + 1 + n * 3 * p * KERNEL_COEFFS
+
+
+def _launch_bwd(name: str, wide: bool, spec, weights, tables, dw, j, xs, ys,
+                cxn, cyn):
+    """Launch the backward kernel of library ``name`` and its block-order
+    reduction; returns the flat cotangent vector."""
+    n, batch = _check_inputs(spec, weights, tables, dw, j, wide=wide)
+    for what, t, shape in (("xs", xs, (n, batch)), ("ys", ys, (n, batch)),
+                           ("x_N cotangent", cxn, (batch,)),
+                           ("y_N cotangent", cyn, (batch,))):
+        _check(what, t, shape, dw.device)
+    n_blocks, n_out = b2_partial_shape(n, batch, spec.hidden, spec.n_pieces)
+    fn = _lib(name, 18, 5, 6)
+    kw = dict(dtype=torch.float32, device=dw.device)
+    partials = torch.empty((n_blocks, n_out), **kw)
+    out = torch.empty((n_out,), **kw)
+    with torch.cuda.device(dw.device):
+        stream = torch.cuda.current_stream(dw.device).cuda_stream
+        rc = fn(*map(_ptr, (dw, j, tables["cc"], tables["pc"], tables["zc"],
+                            tables["lo"], tables["hi"], *weights, xs, ys,
+                            cxn, cyn, partials, out)),
+                n, batch, spec.n_pieces, spec.hidden, n_blocks,
+                *spec.scalars(wide), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    return out
 
 
 def b2_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn, cyn):
@@ -264,30 +373,57 @@ def b2_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn, cyn):
     Returns one flat vector: [dW2 (H·H, row h1 × column out) | db2 | dW3 |
     db1 | dW1 rows t, x, j (3·H) | ȳ0 | table cotangents (N, 3, P, D) for
     cc, pc, zc]."""
-    n, batch = _check_inputs(spec, weights, tables, dw, j)
-    for name, t, shape in (("xs", xs, (n, batch)), ("ys", ys, (n, batch)),
-                           ("x_N cotangent", cxn, (batch,)),
-                           ("y_N cotangent", cyn, (batch,))):
-        _check(name, t, shape, dw.device)
-    n_blocks, n_out = b2_partial_shape(n, batch, spec.hidden, spec.n_pieces)
-    fn = _lib("rollout_bwd", 18, 5, 6)
-    kw = dict(dtype=torch.float32, device=dw.device)
-    partials = torch.empty((n_blocks, n_out), **kw)
-    out = torch.empty((n_out,), **kw)
-    with torch.cuda.device(dw.device):
-        stream = torch.cuda.current_stream(dw.device).cuda_stream
-        rc = fn(*map(_ptr, (dw, j, tables["cc"], tables["pc"], tables["zc"],
-                            tables["lo"], tables["hi"], *weights, xs, ys,
-                            cxn, cyn, partials, out)),
-                n, batch, spec.n_pieces, spec.hidden, n_blocks,
-                *spec.scalars(), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"rollout_bwd: CUDA error {rc} at launch")
+    out = _launch_bwd("rollout_bwd", False, spec, weights, tables, dw, j, xs,
+                      ys, cxn, cyn)
     b2_backward.launches += 1
     return out
 
 
 b2_backward.launches = 0
+
+
+def b2_wide_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn,
+                     cyn):
+    """Kernel B2 at every hidden width up to ``ROLLOUT_MAX_WIDTH`` bar
+    ``KERNEL_WIDTHS``: at most ``b2_wide_blocks(B, H)`` blocks walk their
+    tiles in order, each warp replaying a few paths with its lanes sharing
+    the hidden units, the block summing h1ᵀ·dp2 as register micro-tiles and
+    the table cotangents per step in path order; a second kernel sums the
+    blocks' partials in block order.  Arguments and returns as
+    ``b2_backward``."""
+    out = _launch_bwd("rollout_wide_bwd", True, spec, weights, tables, dw, j,
+                      xs, ys, cxn, cyn)
+    b2_wide_backward.launches += 1
+    return out
+
+
+b2_wide_backward.launches = 0
+
+
+def rollout_kernels(h: int):
+    """(forward, backward) kernels of hidden width ``h``: the specialised
+    B1/B2 at ``KERNEL_WIDTHS``, the wide ones at every other width."""
+    if h in KERNEL_WIDTHS:
+        return b1_forward, b2_backward
+    return b1_wide_forward, b2_wide_backward
+
+
+def b2_cotangents(out, spec: KernelSpec, n: int):
+    """B2's flat output as the cotangents of (W1, b1, W2, b2, W3, b3, y0,
+    cc, pc, zc): b3's from the compensator table's T_0 row, into which the
+    caller folded it (``_fold_b3``)."""
+    h, p = spec.hidden, spec.n_pieces
+    o = h * h
+    dw2 = out[:o].view(h, h)
+    db2 = out[o:o + h]
+    dw3 = out[o + h:o + 2 * h].view(h, 1)
+    db1 = out[o + 2 * h:o + 3 * h]
+    dw1 = out[o + 3 * h:o + 6 * h].view(3, h)
+    dy0 = out[o + 6 * h]
+    tab = out[o + 6 * h + 1:].view(n, 3, p, KERNEL_COEFFS)
+    dcc, dpc, dzc = tab[:, 0], tab[:, 1], tab[:, 2]
+    db3 = -dcc[..., 0].sum().reshape(1)
+    return dw1, db1, dw2, db2, dw3, db3, dy0, dcc, dpc, dzc
 
 
 def _fold_b3(cc, b3):
@@ -299,8 +435,9 @@ def _fold_b3(cc, b3):
 
 
 class FusedRollout(torch.autograd.Function):
-    """B1 forward with residuals, B2 backward: the rollout's gradients with
-    respect to the Γ head, y0 and the three tables."""
+    """B1 forward with residuals, B2 backward, of the build for the head's
+    width: the rollout's gradients with respect to the Γ head, y0 and the
+    three tables."""
 
     @staticmethod
     def forward(ctx, spec, w1, b1, w2, b2, w3, b3, y0, cc, pc, zc, lo, hi,
@@ -308,8 +445,8 @@ class FusedRollout(torch.autograd.Function):
         tables = {"cc": _fold_b3(cc, b3), "pc": pc, "zc": zc, "lo": lo,
                   "hi": hi}
         weights = (w1, b1, w2, b2, w3)
-        xn, yn, xs, ys = b1_forward(spec, weights, y0, tables, dw, j,
-                                    save=True)
+        xn, yn, xs, ys = rollout_kernels(spec.hidden)[0](
+            spec, weights, y0, tables, dw, j, save=True)
         ctx.spec = spec
         ctx.save_for_backward(*weights, tables["cc"], pc, zc, lo, hi, dw, j,
                               xs, ys)
@@ -323,26 +460,16 @@ class FusedRollout(torch.autograd.Function):
         gxn = torch.zeros_like(xs[0]) if gxn is None else gxn.contiguous()
         gyn = torch.zeros_like(xs[0]) if gyn is None else gyn.contiguous()
         tables = {"cc": ccf, "pc": pc, "zc": zc, "lo": lo, "hi": hi}
-        out = b2_backward(spec, (w1, b1, w2, b2, w3), tables, dw, j, xs, ys,
-                          gxn, gyn)
-        h, p, n = spec.hidden, spec.n_pieces, dw.shape[0]
-        o = h * h
-        dw2 = out[:o].view(h, h)
-        db2 = out[o:o + h]
-        dw3 = out[o + h:o + 2 * h].view(h, 1)
-        db1 = out[o + 2 * h:o + 3 * h]
-        dw1 = out[o + 3 * h:o + 6 * h].view(3, h)
-        dy0 = out[o + 6 * h]
-        tab = out[o + 6 * h + 1:].view(n, 3, p, KERNEL_COEFFS)
-        dcc, dpc, dzc = tab[:, 0], tab[:, 1], tab[:, 2]
-        db3 = -dcc[..., 0].sum().reshape(1)
-        return (None, dw1, db1, dw2, db2, dw3, db3, dy0, dcc, dpc, dzc,
-                None, None, None, None)
+        out = rollout_kernels(spec.hidden)[1](
+            spec, (w1, b1, w2, b2, w3), tables, dw, j, xs, ys, gxn, gyn)
+        return (None, *b2_cotangents(out, spec, dw.shape[0]), None, None,
+                None, None)
 
 
 class FusedRolloutOp:
     """``rollout(gam_params, y0, tables, dw, j) -> (x_N, y_N)``: the plain
-    loop on CPU tensors, the B1/B2 kernels on CUDA tensors."""
+    loop on CPU tensors, the B1/B2 kernels of the head's width on CUDA
+    tensors."""
 
     def __init__(self, model, hidden: int, time_scale: float = 1.0,
                  n_pieces: int = 8, degree: int = 7):
@@ -350,9 +477,9 @@ class FusedRolloutOp:
         if consts is None:
             raise ValueError("the fused rollout requires a Merton-form model "
                              "(see merton_form_constants)")
-        if hidden not in KERNEL_WIDTHS:
-            raise ValueError(f"the fused rollout kernels are built for hidden "
-                             f"widths {KERNEL_WIDTHS}, got {hidden}")
+        if not 1 <= hidden <= ROLLOUT_MAX_WIDTH:
+            raise ValueError(f"the fused rollout kernels take hidden widths "
+                             f"1..{ROLLOUT_MAX_WIDTH}, got {hidden}")
         if degree + 1 != KERNEL_COEFFS:
             raise ValueError(f"the fused rollout kernels take degree "
                              f"{KERNEL_COEFFS - 1} tables, got {degree}")
@@ -381,6 +508,6 @@ class FusedRolloutOp:
         w1, b1, w2, b2, w3, b3, y0, cc, pc, zc, lo, hi, dw, j = args
         tables = {"cc": _fold_b3(cc, b3), "pc": pc, "zc": zc, "lo": lo,
                   "hi": hi}
-        xn, yn, _, _ = b1_forward(self.spec, (w1, b1, w2, b2, w3), y0,
-                                  tables, dw, j, save=False)
+        xn, yn, _, _ = rollout_kernels(self.spec.hidden)[0](
+            self.spec, (w1, b1, w2, b2, w3), y0, tables, dw, j, save=False)
         return xn, yn

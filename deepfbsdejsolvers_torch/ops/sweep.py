@@ -30,19 +30,19 @@ from __future__ import annotations
 import torch
 
 from deepfbsdejsolvers_torch.ops.rollout import (
-    KERNEL_WIDTHS, _check, _lib, _ptr)
+    KERNEL_WIDTHS, ROLLOUT_MAX_WIDTH, _check, _lib, _ptr, wide_class,
+    wide_tile)
 
 # Paths per tile of both kernels (128 threads of two paths each), and the
 # most blocks B4 launches: together they fix the order of B4's sums and
 # bound its partial buffer (csrc/sweep_bwd.cu BWD_TILE).
 _TILE = 256
 _B4_MAX_BLOCKS = 512
-# The widest head the wide kernels take: the JAX package's Pallas sweep
-# takes two equal tanh layers up to 128 wide.  Their width classes, and the
-# most blocks the wide B4 launches, two per SM of an H100
-# (csrc/sweep_wide.cuh, csrc/sweep_wide_bwd.cu).
-SWEEP_MAX_WIDTH = 128
-_WIDE_CLASSES = (32, 64, 128)
+# The widest head the wide kernels take (the JAX package's Pallas sweep
+# takes two equal tanh layers up to 128 wide; ``wide_class`` gives the width
+# class each pads to), and the most blocks the wide B4 launches, two per SM
+# of an H100 (csrc/sweep_wide.cuh, csrc/sweep_wide_bwd.cu).
+SWEEP_MAX_WIDTH = ROLLOUT_MAX_WIDTH
 _WIDE_B4_MAX_BLOCKS = 2 * 132
 
 
@@ -98,21 +98,6 @@ def _check_sizes(batch: int, m: int, h: int) -> None:
     if max(batch, h * h + h + 3 * m * h) > 2**31 - _TILE:
         raise ValueError("the sweep does not fit the kernels' 32-bit "
                          "indices")
-
-
-def wide_class(h: int) -> int:
-    """The width class HP the wide kernels pad hidden width ``h`` to."""
-    for hp in _WIDE_CLASSES:
-        if 1 <= h <= hp:
-            return hp
-    raise ValueError(f"the wide sweep kernels take hidden widths 1.."
-                     f"{SWEEP_MAX_WIDTH}, got {h}")
-
-
-def wide_tile(h: int) -> int:
-    """Paths per block of the wide kernels at hidden width ``h``: eight
-    warps of 16·32 / HP paths each."""
-    return 8 * 16 * 32 // wide_class(h)
 
 
 def _check_sweep(x, a, c, w1, b1, v, wide: bool = False):

@@ -33,7 +33,8 @@ evaluated before the loop.  Then the time loop runs either
   collocated price A(i, x) and, for jump-diffusion ``global``, the Z head
   are fitted on it.
   The global rollout reads them in ``ops/rollout.py`` (step by step, or with
-  ``fused_rollout=True`` as the B1/B2 CUDA kernels); the other schemes read
+  ``fused_rollout=True`` as the B1/B2 CUDA kernels, at any width up to
+  128); the other schemes read
   them in their own loops.  The sumlocal tables span the x_{i+1} marginal
   (``shift_next``) and hold no price table;
 * or per step (``hoist=False``, the reference-faithful parity path): every
@@ -60,7 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -74,7 +75,7 @@ from deepfbsdejsolvers_torch.ops.compensator import (
 from deepfbsdejsolvers_torch.ops.numerics import use_full_f32
 from deepfbsdejsolvers_torch.ops.piecewise import pw_fit, pw_nodes
 from deepfbsdejsolvers_torch.ops.rollout import (
-    KERNEL_COEFFS, KERNEL_WIDTHS, FusedRolloutOp, merton_form_constants,
+    KERNEL_COEFFS, ROLLOUT_MAX_WIDTH, FusedRolloutOp, merton_form_constants,
     rollout_plain, table_eval)
 from deepfbsdejsolvers_torch.ops.sweep import (
     SWEEP_MAX_WIDTH, fused_sweep, rank1_three_feature, rank1_two_feature)
@@ -499,19 +500,16 @@ class PricingSolver:
         return out
 
     # ----------------------------------------------------- kernel conditions
-    def _head_unmet(self, widths: Union[Tuple[int, ...], range]
-                    ) -> List[str]:
+    def _head_unmet(self, max_width: int) -> List[str]:
         """Why the Γ head does not fit a pair of CUDA kernels: they take
-        two equal tanh hidden layers of a width in ``widths``."""
+        two equal tanh hidden layers of a width in 1..``max_width``."""
         h = self.hidden
-        shown = (f"{widths[0]}..{widths[-1]}" if isinstance(widths, range)
-                 else str(widths))
         reasons = []
         if self.activation != "tanh":
             reasons.append(f"activation {self.activation!r} != 'tanh'")
-        if not (len(h) == 2 and h[0] == h[1] and h[0] in widths):
+        if not (len(h) == 2 and h[0] == h[1] and 1 <= h[0] <= max_width):
             reasons.append(f"hidden {tuple(h)} must be two equal layers of a "
-                           f"width in {shown}")
+                           f"width in 1..{max_width}")
         return reasons
 
     def fused_unmet(self) -> List[str]:
@@ -524,7 +522,7 @@ class PricingSolver:
                            "global scheme's rollout")
         if not self.hoist or self.hoist_interp != "piecewise":
             reasons.append("needs hoist=True and hoist_interp='piecewise'")
-        reasons += self._head_unmet(KERNEL_WIDTHS)
+        reasons += self._head_unmet(ROLLOUT_MAX_WIDTH)
         if self.pw_degree + 1 != KERNEL_COEFFS:
             reasons.append(f"pw_degree {self.pw_degree} != "
                            f"{KERNEL_COEFFS - 1}")
@@ -542,7 +540,7 @@ class PricingSolver:
         package warns and falls back to its XLA sweep on these; the port
         refuses them (the pricing pipeline chooses the plain sweep for such
         a method before it builds the solver, and says so)."""
-        reasons = self._head_unmet(range(1, SWEEP_MAX_WIDTH + 1))
+        reasons = self._head_unmet(SWEEP_MAX_WIDTH)
         if not self.use_gam_net and self.with_heads and self.jump_diff:
             reasons.append(f"scheme {self.scheme!r} sweeps the 2-output "
                            "U-net, Γ = U(t, X·e^J)[0]; the kernels take a "

@@ -78,7 +78,7 @@ def test_form_probe_accepts_merton_rejects_nonaffine_increments():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(hidden=(8, 16)), "two equal layers"),
-    (dict(hidden=(16, 16)), "two equal layers"),
+    (dict(hidden=(129, 129)), "two equal layers"),
     (dict(hidden=(8, 8), hoist_interp="clenshaw"), "piecewise"),
     (dict(hidden=(8, 8), pw_degree=5), "pw_degree"),
     (dict(hidden=(8, 8), activation="relu"), "activation"),
@@ -96,8 +96,9 @@ def test_fused_preconditions_raise_before_touching_cuda(kw, match):
 
 
 def test_operator_rejects_unbuilt_widths_and_degrees():
-    with pytest.raises(ValueError, match="hidden widths"):
-        R.FusedRolloutOp(_model(), 16)
+    for h in (0, 129):
+        with pytest.raises(ValueError, match="hidden widths"):
+            R.FusedRolloutOp(_model(), h)
     with pytest.raises(ValueError, match="degree"):
         R.FusedRolloutOp(_model(), 8, degree=5)
 

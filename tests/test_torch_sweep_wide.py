@@ -86,8 +86,8 @@ def test_sweep_unmet_refuses_what_the_kernels_do_not_take(kw, match):
 
 @pytest.mark.parametrize("h", [1, 8, 20, 21, 33, 64, 100, 128])
 def test_sweep_takes_every_width_up_to_128(h):
-    """Both regimes' one-output heads at any width 1..128; the fused rollout
-    keeps its two widths."""
+    """Both regimes' one-output heads at any width 1..128, and the fused
+    rollout's head too."""
     for model, scheme in ((torch_merton(), "global"),
                           (torch_merton(), "sumlocal2"),
                           (torch_vg(), "multistep1")):
@@ -99,16 +99,17 @@ def test_sweep_takes_every_width_up_to_128(h):
                     hidden=(h, h), device="cpu", hoist=True,
                     hoist_interp="piecewise",
                     compensator=TorchComp(x_interp="chebyshev"))
-    assert any("(8, 21)" in r for r in fused.fused_unmet()) == (
-        h not in (8, 21))
+    assert fused.fused_unmet() == []
 
 
 def test_fused_unmet_still_refuses_64():
+    """The fused rollout takes every width up to 128 since the wide B1/B2
+    (tests/test_torch_rollout_wide.py); past it, it still refuses."""
     with pytest.raises(ValueError, match=r"two equal layers of a width in "
-                                         r"\(8, 21\)"):
+                                         r"1\.\.128"):
         TorchPS(dataclasses.replace(torch_merton(price_mode="chebyshev"),
                                     N=3), "global",
-                hidden=(64, 64), device="cuda", hoist=True,
+                hidden=(129, 129), device="cuda", hoist=True,
                 hoist_interp="piecewise", fused_rollout=True,
                 compensator=TorchComp(x_interp="chebyshev"))
 
