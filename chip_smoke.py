@@ -40,9 +40,11 @@ Phases, each fatal on failure:
      2^14 + 37 paths, the CLI's wide runs' shapes (the 49-node quadrature
      on J and the 96-node set on X·J at 2^17 + 37 paths), 5000
      Monte-Carlo nodes at 2^12 + 37, one node at 37 paths, 17 nodes at
-     1025 and at 2^17 + 37 (the wide B4's blocks walk 4 to 16 tiles); the
-     plain reference summed over node blocks where its grid passes 2^29
-     elements; B4's gradients held leaf by leaf and as a whole;
+     1025 and at 2^17 + 37 (the wide B4's 264 blocks walk 3 or 4 tiles);
+     the plain reference summed over node blocks where its grid passes
+     2^29 elements; B4's gradients held leaf by leaf and as a whole; at
+     H = 128 on the 5000 nodes, each leaf's distance from a float64
+     evaluation printed for B4 and for the plain version;
    - the wide B1/B2 at hidden 20, 64, 100 and 128 (``WIDE_ROLLOUT_CHECKS``):
      N = 50 at 2^14 + 37 paths, N = 7 at 1000 paths and at 2.5 tiles for
      each of the wide B2's 264 blocks (its blocks walk two and three
@@ -79,6 +81,10 @@ Phases, each fatal on failure:
      kernel; and the six other schemes on the VG model, 2 × 2 steps, with
      the launches of ``VG_SCHEMES`` (multistep1/2 30 B3 + 30 B4 a step,
      sumlocal1/2 31 + 30, the regressions none);
+   - the parity path at the CLI's wide widths (``WIDE_PARITY``): Merton at
+     hidden (64, 64) on the 49 nodes and VG at (128, 128) on the 96 nodes
+     on X·J, 2 × 2 steps: B3w and B4w at each time step of a step, B3w at
+     each of an evaluation's, the other kernels never;
 4. time a training step of each path (``cuda_ms``) and profile it, and
    time each kernel and its plain version the same way (``kernel_ms``:
    calls back to back between two CUDA events, after a warm-up) at the
@@ -86,7 +92,7 @@ Phases, each fatal on failure:
    pure-jump forms at the 96-node quadrature; the wide B3/B4 at batch 2^17
    on the 49- and 96-node sets at each of hidden 20, 64, 100, 128; the wide
    B1/B2 at N = 50, batch 2^17 at the same widths, and a step of the wide
-   speed path at hidden 64 and 128;
+   speed path at hidden 64 and 128 and of the wide parity paths;
 5. drive the smart-grid MFG model (``mfg_phases``), every launch counter
    set to 0 just before and each required to read 0 just after (its
    paths reach no kernel): the comparison model (N = 95, hidden (20, 20) /
@@ -129,7 +135,8 @@ The line before the last holds the card's name and power limit
 launches on its main path, and per path under ``launches_by_path``; the
 wide sweep pair's rows at the ``merton --nbNeuron 64`` path's shapes, the
 wide rollout pair's at the hidden-64 speed path's, every width and node
-set under ``by_width``; the bench cells' lines under ``bench``); the last
+set under ``by_width``, with the tensor-core floor of the wide sweep pair
+beside its FP32 bound; the bench cells' lines under ``bench``); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -204,8 +211,9 @@ SCHEME_STEPS, SCHEME_EPOCHS = 2, 2
 # --nbNeuron 128, Global at batch 2^17: the 49 nodes on J, the 96 on X·J)
 # at 2^17 + 37 paths; 5000 Monte-Carlo nodes at 2^12 + 37; and the
 # tiling's edges: one node at 37 paths, 17 nodes (one past a node chunk) at
-# 1025, and 17 nodes at 2^17 + 37, where the wide B4's 264 blocks walk 4
-# (H = 20) to 16 (H = 100, 128) tiles
+# 1025, and 17 nodes at 2^17 + 37, where the wide B4's 264 blocks walk 3
+# or 4 tiles of 128 paths (and flush dW1 after node 16 and at each tile's
+# end)
 WIDE_WIDTHS = (20, 64, 100, 128)
 WIDE_SWEEP_CHECKS = (
     ("quadrature", 0, "j", CHECK_BATCH),
@@ -285,8 +293,19 @@ BENCH_CELLS = (
 # grid elements (2 GB a tensor), so its autograd fits the card at H = 128
 PLAIN_GRID = 2**29
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
-# FP32 outside the tensor cores, and HBM3 bandwidth.
-PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# FP32 outside the tensor cores, TF32 on them (dense), and HBM3 bandwidth.
+PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
+# The wide parity paths: SolverGlobalFBSDE(..., sweep_impl="pallas") at the
+# CLI's wide widths, (label, model, width, time steps), batch 2^17, 2 × 2
+# steps: Merton at hidden (64, 64) with the 49 nodes on J, VG at (128, 128)
+# with the 96 nodes on X·J; B3w at every time step of a step and of an
+# evaluation, B4w at every time step of a step.
+WIDE_PARITY = (("parity_64", "merton", 64, N_STEPS),
+               ("vg_parity_128", "vg", 128, N_VG))
+# The wide check held to a float64 evaluation as well: H = 128 on 5000
+# Monte-Carlo nodes at 2^12 + 37 paths, where B4w's dW1 sums the most
+# path-node terms of any check.
+F64_CHECK = (128, ("mc", N_MC, "j", 2**12 + 37))
 
 
 def fail(msg: str) -> None:
@@ -395,6 +414,22 @@ def work(kernel: str, n: int, batch: int, h: int, p: int):
 def bound(kernel, n, batch, h, p):
     flops, nbytes = work(kernel, n, batch, h, p)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+
+
+def tc_floor(kernel, n, batch, h):
+    """The bound of a sweep kernel (B3, B4) whose H×H products run on the
+    tensor cores, as (ms, what bounds it): the larger of the products' 2H²
+    operations each (one product in B3, three in B4) at the TF32 peak, the
+    rest of ``work()``'s operations at the FP32 peak, and its bytes at the
+    HBM rate.  The wide pair's ``bound_ms``; ``bound()`` is its FP32
+    figure."""
+    flops, nbytes = work(kernel, n, batch, h, 0)
+    products = n * batch * 2 * h * h * (1 if kernel == "B3" else 3)
+    t_ops = max(products / PEAK_TF32_FLOPS,
+                (flops - products) / PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                       else "bytes")
 
@@ -773,16 +808,16 @@ def plain_sweep_and_grads(args, g, max_elems: int = PLAIN_GRID):
     return out, (dx, da, dc, dw1, db1, dv)
 
 
-def check_sweep(args, g) -> dict:
+def check_sweep(args, g, kernels=None) -> dict:
     """Phase 2: B3 against ``sweep_plain``, B4 against autograd of it, on
     the same inputs, through the kernel pair of the head's width (the
-    specialised B3/B4 at 8 and 21, the wide pair elsewhere); B4's
-    gradients held as a whole and each leaf (x, a, c, W1, b1, v) on its
-    own, so a wrong leaf that the global norm would hide fails; B4 twice
-    bit for bit."""
+    specialised B3/B4 at 8 and 21, the wide pair elsewhere; or the
+    (forward, backward) ``kernels`` given); B4's gradients held as a whole
+    and each leaf (x, a, c, W1, b1, v) on its own, so a wrong leaf that the
+    global norm would hide fails; B4 twice bit for bit."""
     from deepfbsdejsolvers_torch.ops import sweep as S
 
-    fwd, bwd = S.sweep_kernels(args[1].shape[1])
+    fwd, bwd = kernels or S.sweep_kernels(args[1].shape[1])
     with torch.no_grad():
         out_k = fwd(*args)
     out_p, gp = plain_sweep_and_grads(args, g)
@@ -817,6 +852,29 @@ def check_sweep(args, g) -> dict:
         fail("two B4 runs on the same inputs differ")
     return {"B3": {"max_abs_err": fwd_err, "rel_err": fwd_rel},
             "B4": {"max_abs_err": grad_abs, "rel_err": grad_rel}}
+
+
+def f64_distances(args, g, kernels=None) -> dict:
+    """Each gradient leaf's relative distance from a float64 evaluation
+    of the sweep (``plain_sweep_and_grads`` on the inputs in float64, summed
+    over node blocks as the plain reference is), for B4 (the pair of the
+    head's width, or ``kernels``) and for autograd of ``sweep_plain`` in
+    f32: {"kernel": {leaf: d}, "plain": {leaf: d}}."""
+    from deepfbsdejsolvers_torch.ops import sweep as S
+
+    bwd = (kernels or S.sweep_kernels(args[1].shape[1]))[1]
+    _, g64 = plain_sweep_and_grads(tuple(t.double() for t in args),
+                                   g.double(), max_elems=PLAIN_GRID // 4)
+    _, g32 = plain_sweep_and_grads(args, g)
+    gk = bwd(*args, g)
+    leaves = ("x", "a", "c", "W1", "b1", "v")
+    out = {who: {n: float((a.double() - b).norm() / b.norm())
+                 for n, a, b in zip(leaves, grads, g64)}
+           for who, grads in (("kernel", gk), ("plain", g32))}
+    for who, d in out.items():
+        print(f"{who} vs float64: " + ", ".join(f"{n} {r:.2e}"
+                                                for n, r in d.items()))
+    return out
 
 
 def time_sweep(args, g, node_block=None) -> dict:
@@ -1434,10 +1492,13 @@ def main() -> int:
                 f"{N_VG_QUAD}-node VG" if form != "j" else "quadrature")
             print(f"wide sweep check at H={h}, {nodes} nodes, form {form}, "
                   f"B={batch} (B4: {S.b4_wide_blocks(batch, h)} blocks walk "
-                  f"{-(-batch // S.wide_tile(h))} tiles):")
-            result = check_sweep(*sweep_inputs(h, node_set, batch, tag,
-                                               n_mc or N_MC, form=form))
-            wide_check[(h, case)] = result
+                  f"{-(-batch // S.b4_wide_tile())} tiles):")
+            args, g = sweep_inputs(h, node_set, batch, tag, n_mc or N_MC,
+                                   form=form)
+            wide_check[(h, case)] = check_sweep(args, g)
+            if (h, case) == F64_CHECK:
+                f64 = f64_distances(args, g)
+            del args, g
     # the wide rollout at the same widths, results by (H, (N, B))
     wide_roll_check = {}
     for h in WIDE_WIDTHS:
@@ -1508,6 +1569,18 @@ def main() -> int:
             {"B3": b3, "B4": b4}, {"B3": b3_eval}, counters, facade=facade,
             steps=SCHEME_STEPS, epochs=SCHEME_EPOCHS)
 
+    # the parity path at the CLI's wide widths: B3w/B4w, the specialised
+    # pair never
+    wide_parity = {}
+    for label, which, h, n in WIDE_PARITY:
+        print(f"{label}: {which} parity path at hidden ({h}, {h}) "
+              "(sweep_impl='pallas', B3w/B4w), 2 × 2 steps:")
+        wide_parity[label], by_path[label] = train_path(
+            dict(math_model=make_merton_default() if which == "merton"
+                 else vg_model, sweep_impl="pallas", device="cuda"),
+            {"B3w": n, "B4w": n}, {"B3w": n}, counters, steps=2, epochs=2,
+            hidden=h)
+
     # 4. timings at the paths' shapes
     step_ms, rate = time_step(trainer, 4, "speed")
     times = time_kernels(op, rollout_inputs(
@@ -1560,6 +1633,9 @@ def main() -> int:
                           for k, v in times_wide_roll[h].items()))
     wide_step_ms = {h: time_step(t, 60 + h, f"speed at hidden ({h}, {h})")[0]
                     for h, t in wide_trainers.items()}
+    wide_parity_ms = {label: time_step(wide_parity[label], 70 + k, label,
+                                       reps=3)[0]
+                      for k, (label, *_) in enumerate(WIDE_PARITY)}
 
     # 5. the smart-grid MFG model: no kernel on its paths
     mfg = mfg_phases(counters)
@@ -1658,7 +1734,8 @@ def main() -> int:
     # the wide kernels: the main row at the merton --nbNeuron 64 path's
     # shapes (its error from the check at them), every width class and
     # both node sets under by_width (errors on the 49 nodes at 2^14 + 37)
-    wide_paths = [f"cli_{cmd}_{width}" for cmd, width, _ in CLI_WIDE]
+    wide_paths = [label for label, *_ in WIDE_PARITY] + [
+        f"cli_{cmd}_{width}" for cmd, width, _ in CLI_WIDE]
     for k, src, tpu, fn in (
             ("B3w", "sweep_wide_fwd", "pallas_sweep.py:179", "fwd_kernel"),
             ("B4w", "sweep_wide_bwd", "pallas_sweep.py:199", "bwd_kernel")):
@@ -1672,13 +1749,15 @@ def main() -> int:
                    "ptxas": ptxas.get(f"{src} {fn}<{hp}>"),
                    **occupancy_by[f"{src}<{hp}>"]}
             for m in (N_QUAD, N_VG_QUAD):
-                b_ms, b_by = bound(kind, m, TRAIN_BATCH, h, PIECES)
+                b_ms, b_by = tc_floor(kind, m, TRAIN_BATCH, h)
+                fp32_ms, _ = bound(kind, m, TRAIN_BATCH, h, PIECES)
                 t = times_wide[(h, m)][kind]
                 row[f"M{m}"] = {"ms": t["ms"], "plain_ms": t["plain_ms"],
                                 "bound_ms": b_ms, "bound_by": b_by}
                 print(f"{k} at H={h} (HP {hp}), M={m}: {t['ms']:.4f} ms "
-                      f"(plain {t['plain_ms']:.3f} ms, bound {b_ms:.4f} ms "
-                      f"by {b_by})")
+                      f"(plain {t['plain_ms']:.3f} ms, tensor-core bound "
+                      f"{b_ms:.4f} ms by {b_by}; FP32 bound {fp32_ms:.4f} "
+                      f"ms)")
             by_width[h] = row
         main_row = by_width[64][f"M{N_QUAD}"]
         main_err = wide_check[(64, ("quadrature", 0, "j", 2**17 + 37))][kind]
@@ -1695,6 +1774,9 @@ def main() -> int:
             "bound_by": main_row["bound_by"], "library_ms": None,
             "shape": {"M": N_QUAD, "B": TRAIN_BATCH, "H": 64},
             "by_width": by_width})
+        if kind == "B4":
+            record[-1]["f64_distances"] = {"H": F64_CHECK[0], "M": N_MC,
+                                           "B": F64_CHECK[1][3], **f64}
     # the wide rollout: the main row at hidden 64 (the wide speed path's
     # shapes, its error from the check at 2^17 + 37 paths), every width
     # under by_width (errors from the check at 2^14 + 37)
@@ -1738,7 +1820,9 @@ def main() -> int:
                       "parity_paths_steps_per_s": prate,
                       "scheme_train_step_ms": scheme_ms,
                       "vg_train_step_ms": vg_ms,
-                      "wide_train_step_ms": wide_step_ms, "mfg": mfg,
+                      "wide_train_step_ms": wide_step_ms,
+                      "wide_parity_train_step_ms": wide_parity_ms,
+                      "mfg": mfg,
                       "cli": cli_out, "bench": bench, "gate": gate}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {

@@ -19,10 +19,11 @@ the ``FusedSweep`` autograd function.  They come in two builds: specialised
 at the hidden widths ``KERNEL_WIDTHS`` (8 and 21; ``csrc/sweep_fwd.cu``,
 ``csrc/sweep_bwd.cu``), and wide at every other width up to
 ``SWEEP_MAX_WIDTH`` (``csrc/sweep_wide_fwd.cu``, ``csrc/sweep_wide_bwd.cu``,
-zero-padded to a width class of 32, 64 or 128), each with its own launch
-count.  ``fused_sweep`` dispatches on the device of its input: the plain
-sweep on CPU tensors, the kernels on CUDA tensors, and no fallback from the
-kernels to the plain sweep.
+zero-padded to a width class of 32, 64 or 128, their H×H products on the
+tensor cores in split TF32), each with its own launch count.
+``fused_sweep`` dispatches on the device of its input: the plain sweep on
+CPU tensors, the kernels on CUDA tensors, and no fallback from the kernels
+to the plain sweep.
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ from __future__ import annotations
 import torch
 
 from deepfbsdejsolvers_torch.ops.rollout import (
-    KERNEL_WIDTHS, ROLLOUT_MAX_WIDTH, _check, _lib, _ptr, wide_class,
-    wide_tile)
+    KERNEL_WIDTHS, ROLLOUT_MAX_WIDTH, _check, _lib, _ptr, wide_class)
 
 # Paths per tile of both kernels (128 threads of two paths each), and the
 # most blocks B4 launches: together they fix the order of B4's sums and
@@ -40,9 +40,12 @@ _TILE = 256
 _B4_MAX_BLOCKS = 512
 # The widest head the wide kernels take (the JAX package's Pallas sweep
 # takes two equal tanh layers up to 128 wide; ``wide_class`` gives the width
-# class each pads to), and the most blocks the wide B4 launches, two per SM
-# of an H100 (csrc/sweep_wide.cuh, csrc/sweep_wide_bwd.cu).
+# class each pads to, as the wide rollout's), the wide B4's paths per block
+# (eight warps of one m16 tile of 16 paths, at every width class), and the
+# most blocks it launches, two per SM of an H100 (csrc/sweep_wide.cuh,
+# csrc/sweep_wide_bwd.cu).
 SWEEP_MAX_WIDTH = ROLLOUT_MAX_WIDTH
+_WIDE_TILE = 128
 _WIDE_B4_MAX_BLOCKS = 2 * 132
 
 
@@ -180,7 +183,8 @@ b3_forward.launches = 0
 def b3_wide_forward(x, a, c, w1, b1, v):
     """Kernel B3 at every hidden width up to ``SWEEP_MAX_WIDTH`` bar
     ``KERNEL_WIDTHS``: each warp carries a few paths through the nodes in
-    order, its lanes sharing the hidden units.  Returns out (B,)."""
+    order, its H×H product on the tensor cores in split TF32.  Returns out
+    (B,)."""
     out = _launch_fwd("sweep_wide_fwd", True, x, a, c, w1, b1, v)
     b3_wide_forward.launches += 1
     return out
@@ -195,11 +199,18 @@ def b4_blocks(batch: int) -> int:
     return min(-(-batch // _TILE), _B4_MAX_BLOCKS)
 
 
+def b4_wide_tile() -> int:
+    """Paths per block of the wide B4: eight warps of 16 paths, the rows of
+    their tensor-core tiles, at every width class."""
+    return _WIDE_TILE
+
+
 def b4_wide_blocks(batch: int, h: int) -> int:
     """Thread blocks of the wide B4 for ``batch`` paths at hidden width
     ``h``: one per tile up to a fixed maximum, each walking its tiles in
     order."""
-    return min(-(-batch // wide_tile(h)), _WIDE_B4_MAX_BLOCKS)
+    wide_class(h)
+    return min(-(-batch // _WIDE_TILE), _WIDE_B4_MAX_BLOCKS)
 
 
 def b4_partial_shape(batch: int, m: int, h: int):
@@ -231,9 +242,9 @@ def b4_wide_backward(x, a, c, w1, b1, v, g):
     """Kernel B4 at every hidden width up to ``SWEEP_MAX_WIDTH`` bar
     ``KERNEL_WIDTHS``, for the cotangent ``g`` (B,): each warp recomputes
     its paths' hidden layers and their backward, the block sums dW1 over its
-    paths as register micro-tiles and da, dc, dv over its warps in order; a
-    second kernel sums the blocks' partials in block order.  Returns (dx,
-    da, dc, dw1, db1, dv)."""
+    paths and da, dc, dv over its warps in order, the three H×H products on
+    the tensor cores in split TF32; a second kernel sums the blocks'
+    partials in block order.  Returns (dx, da, dc, dw1, db1, dv)."""
     grads = _launch_bwd("sweep_wide_bwd", True, x, a, c, w1, b1, v, g)
     b4_wide_backward.launches += 1
     return grads

@@ -1,6 +1,7 @@
-"""A/B of the port's CUDA kernels B1–B4 on one CUDA card.
+"""A/B of the port's CUDA kernels B1–B4, or of the wide sweep pair, on one
+CUDA card.
 
-    python3 kernel_ab.py [--against DIR]
+    python3 kernel_ab.py [--against DIR] [--wide]
 
 Builds the four kernels (``csrc/rollout_fwd.cu``, ``rollout_bwd.cu``,
 ``sweep_fwd.cu``, ``sweep_bwd.cu``) of this checkout and, with
@@ -26,8 +27,20 @@ kernel, whole and per loop: every backward branch closes a loop, printed
 with its nesting depth and the counts of its body without its inner
 loops, so that each body can be multiplied by its trip count; whether
 B1's outputs and B3's output equal the first build's bit for bit; the two
-times of each kernel; and the card's name and power limit.  Exits non-zero without a card or
-when a check fails.
+times of each kernel; and the card's name and power limit.  Exits non-zero
+without a card or when a check fails.
+
+With ``--wide`` it takes the wide sweep pair B3w/B4w instead
+(``csrc/sweep_wide_fwd.cu``, ``sweep_wide_bwd.cu``), each build through its
+own version's ``ops/sweep.py`` (``DIR/../ops/sweep.py``, whose tiling and
+partial buffer may differ): ``check_sweep`` at hidden 20, 64, 100 and 128
+on the 49-node quadrature at 2^14 + 37 paths and at ``chip_smoke.py``'s
+``F64_CHECK`` (H = 128, 5000 Monte-Carlo nodes, 2^12 + 37 paths), where each
+gradient leaf's distance from a float64 evaluation is printed for B4w and
+for the plain version; the kernels timed in turns at B = 2^17 at each
+hidden width on the 49 nodes on J and at 128 on the 96 nodes on X·J, with
+their FP32 bound and tensor-core bound; and a training step of each of
+``WIDE_PARITY``'s paths (the parity path at hidden 64 and 128) in turns.
 """
 
 from __future__ import annotations
@@ -45,33 +58,37 @@ from pathlib import Path
 import torch
 
 NAMES = ("rollout_fwd", "rollout_bwd", "sweep_fwd", "sweep_bwd")
+WIDE_NAMES = ("sweep_wide_fwd", "sweep_wide_bwd")
+# the wide pair's timed shapes at B = 2^17: (hidden, form), the 49 nodes on
+# J ("j") or the 96 nodes on X·J ("x_prop")
+WIDE_TIMES = ((20, "j"), (64, "j"), (100, "j"), (128, "j"), (128, "x_prop"))
 CLASSES = {"FFMA": "fp32", "FADD": "fp32", "FMUL": "fp32", "MUFU": "mufu",
-           "LDS": "lds", "STS": "sts", "SHFL": "shfl", "BAR": "bar",
-           "LDG": "ldg", "STG": "stg", "LDL": "local", "STL": "local"}
+           "HMMA": "hmma", "LDS": "lds", "STS": "sts", "SHFL": "shfl",
+           "BAR": "bar", "LDG": "ldg", "STG": "stg", "LDL": "local",
+           "STL": "local"}
 
 
-def build(csrc: Path) -> dict:
-    """{name: loaded library} of B1–B4 built from ``csrc``."""
+def build(csrc: Path, names=NAMES) -> dict:
+    """{name: loaded library} of the kernels ``names`` built from
+    ``csrc``."""
     from deepfbsdejsolvers_torch.ops import _build
 
-    _build.build(NAMES, csrc)
-    return {n: ctypes.CDLL(str(_build.library_path(n, csrc))) for n in NAMES}
+    _build.build(names, csrc)
+    return {n: ctypes.CDLL(str(_build.library_path(n, csrc))) for n in names}
 
 
-def rollout_module(csrc: Path):
-    """The ``ops/rollout.py`` beside ``csrc``, loaded as a module of its
-    own (this checkout's is the package's)."""
+def ops_module(csrc: Path, name: str):
+    """The ``ops/<name>.py`` beside ``csrc``, loaded as a module of its own
+    (this checkout's is the package's)."""
     from deepfbsdejsolvers_torch.ops import _build
-    from deepfbsdejsolvers_torch.ops import rollout
 
     if csrc == _build.CSRC:
-        return rollout
-    path = csrc.parent / "ops" / "rollout.py"
-    spec = importlib.util.spec_from_file_location("kernel_ab_rollout", path)
+        return importlib.import_module(f"deepfbsdejsolvers_torch.ops.{name}")
+    path = csrc.parent / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"kernel_ab_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    mod.b1_forward.launches = mod.b2_backward.launches = 0
     return mod
 
 
@@ -147,14 +164,14 @@ def loops(instrs):
     return out
 
 
-def print_build(label: str, csrc: Path) -> None:
+def print_build(label: str, csrc: Path, names=NAMES) -> None:
+    from chip_smoke import ptxas_lines
     from deepfbsdejsolvers_torch.ops import _build
 
-    for n in NAMES:
+    for n in names:
         lib = _build.library_path(n, csrc)
-        for line in _build.ptxas_log(lib).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"{label} {n}: {line.strip()}")
+        for fn, line in ptxas_lines(_build.ptxas_log(lib).read_text()):
+            print(f"{label} {n} {fn}: {line}")
         for kernel, instrs in sass(lib).items():
             print(f"{label} sass {kernel[:48]}: {counts(instrs)}")
             for depth, start, end, c in loops(instrs):
@@ -162,9 +179,105 @@ def print_build(label: str, csrc: Path) -> None:
                       f"(depth {depth}) body {c}")
 
 
+def wide_ab(C, dirs: dict) -> None:
+    """``--wide``: the wide sweep pair of each build through its own
+    ``ops/sweep.py``: checks, float64 distances, kernel times and the wide
+    parity paths' steps, in turns."""
+    from deepfbsdejsolvers_torch.models.merton import make_merton_default
+    from deepfbsdejsolvers_torch.models.variance_gamma import make_vg_default
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+    from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
+    from deepfbsdejsolvers_torch.solvers.train import (
+        make_adam, make_generator, make_step)
+
+    built = {label: build(csrc, WIDE_NAMES) for label, csrc in dirs.items()}
+    pairs = {}
+    for label, csrc in dirs.items():
+        mod = ops_module(csrc, "sweep")
+        pairs[label] = (mod.b3_wide_forward, mod.b4_wide_backward)
+        print_build(label, csrc, WIDE_NAMES)
+    order = list(built)
+    for label in order:
+        with using(built[label]):
+            for name in WIDE_NAMES:
+                for hp in (32, 64, 128):
+                    smem, blocks = C.occupancy(name, hp)
+                    print(f"{label} {name}<{hp}>: {smem} bytes of shared "
+                          f"memory per block, {blocks} blocks per SM")
+
+    # checks at each width, and float64 at F64_CHECK
+    for h in C.WIDE_WIDTHS:
+        case = C.WIDE_SWEEP_CHECKS[0]
+        args, g = C.sweep_inputs(h, case[0], case[3], 100 + 10 * h)
+        for label in order:
+            print(f"{label} H={h} quadrature B={case[3]}:")
+            with using(built[label]):
+                C.check_sweep(args, g, kernels=pairs[label])
+        del args, g
+    h, case = C.F64_CHECK
+    args, g = C.sweep_inputs(h, case[0], case[3],
+                             100 + 10 * h + C.WIDE_SWEEP_CHECKS.index(case),
+                             case[1])
+    for label in order:
+        print(f"{label} H={h} {case[1]} MC nodes B={case[3]}:")
+        with using(built[label]):
+            C.check_sweep(args, g, kernels=pairs[label])
+            C.f64_distances(args, g, kernels=pairs[label])
+    del args, g
+
+    # kernel times, in turns
+    for h, form in WIDE_TIMES:
+        args, g = C.sweep_inputs(h, "quadrature", C.TRAIN_BATCH, 13,
+                                 form=form)
+        m = args[1].shape[0]
+        times = {label: {"B3w": [], "B4w": []} for label in order}
+        for label in order + order + order[::-1]:
+            fwd, bwd = pairs[label]
+            with using(built[label]):
+                times[label]["B3w"].append(C.kernel_ms(lambda: fwd(*args),
+                                                       10))
+                times[label]["B4w"].append(C.kernel_ms(
+                    lambda: bwd(*args, g), 10))
+        for label in order:
+            t = {k: v[1:] for k, v in times[label].items()}
+            print(f"wide H={h} M={m} B={C.TRAIN_BATCH} {label}: " + ", ".join(
+                f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in t.items()))
+        for k in ("B3", "B4"):
+            b_ms, _ = C.bound(k, m, C.TRAIN_BATCH, h, 0)
+            print(f"wide H={h} M={m} {k}w: FP32 bound {b_ms:.4f} ms, "
+                  f"tensor-core bound "
+                  f"{C.tc_floor(k, m, C.TRAIN_BATCH, h)[0]:.4f} ms")
+        del args, g
+
+    # the wide parity paths' training steps, in turns
+    for path, which, h, _ in C.WIDE_PARITY:
+        model = make_merton_default() if which == "merton" else (
+            make_vg_default())
+        solver = PricingSolver(model, "global", hidden=(h, h),
+                               sweep_impl="pallas", device="cuda")
+        params = solver.init_params(make_generator("cpu", C.SEED, 0))
+        for t in param_leaves(params):
+            t.requires_grad_(True)
+        step = make_step(solver.build_loss(C.TRAIN_BATCH),
+                         make_adam(params, 4e-4), params)
+        gen = make_generator("cuda", C.SEED, 80 + h)
+        times = {label: [] for label in order}
+        for label in order + order + order[::-1]:
+            with using(built[label]):
+                times[label].append(C.cuda_ms(lambda: step(gen), reps=3,
+                                              warmup=1))
+        for label in order:
+            t = times[label][1:]
+            print(f"{path} step at batch {C.TRAIN_BATCH} {label}: "
+                  f"{t[0]:.3f} / {t[1]:.3f} ms")
+        del solver, params, step
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="another version's csrc directory")
+    ap.add_argument("--wide", action="store_true",
+                    help="A/B the wide sweep pair B3w/B4w instead of B1–B4")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -179,8 +292,12 @@ def main() -> int:
     dirs = {"this": _build.CSRC}
     if opts.against:
         dirs = {"against": Path(opts.against).resolve(), **dirs}
+    if opts.wide:
+        wide_ab(C, dirs)
+        print_smi()
+        return 0
     built = {label: build(csrc) for label, csrc in dirs.items()}
-    mods = {label: rollout_module(csrc) for label, csrc in dirs.items()}
+    mods = {label: ops_module(csrc, "rollout") for label, csrc in dirs.items()}
     order = list(built)
     for label, csrc in dirs.items():
         print_build(label, csrc)
@@ -250,11 +367,15 @@ def main() -> int:
                   f"{t['B3'][1]:.4f} ms, B4 {t['B4'][0]:.4f} / "
                   f"{t['B4'][1]:.4f} ms")
         del args, g
+    print_smi()
+    return 0
+
+
+def print_smi() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi or "nvidia-smi: no output")
-    return 0
 
 
 if __name__ == "__main__":

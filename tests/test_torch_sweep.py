@@ -208,7 +208,7 @@ def test_b4_scratch_stays_within_its_bound(m, batch, h):
     """Every block walks at least one tile, and the partial buffer holds at
     most 512 (the specialised B4 at 8 and 21) or 264 (the wide B4
     elsewhere) × (H² + H + 3·M·H) floats, at any batch and node count."""
-    tile, most = (256, 512) if h in (8, 21) else (S.wide_tile(h), 264)
+    tile, most = (256, 512) if h in (8, 21) else (S.b4_wide_tile(), 264)
     blocks, per_block = S.b4_partial_shape(batch, m, h)
     assert per_block == h * h + h + 3 * m * h
     assert 1 <= blocks <= -(-batch // tile)

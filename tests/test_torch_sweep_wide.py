@@ -115,14 +115,15 @@ def test_fused_unmet_still_refuses_64():
 
 
 @pytest.mark.parametrize("h,hp,tile", [(1, 32, 128), (20, 32, 128),
-                                       (32, 32, 128), (33, 64, 64),
-                                       (64, 64, 64), (65, 128, 32),
-                                       (100, 128, 32), (128, 128, 32)])
+                                       (32, 32, 128), (33, 64, 128),
+                                       (64, 64, 128), (65, 128, 128),
+                                       (100, 128, 128), (128, 128, 128)])
 def test_width_classes_and_tiles(h, hp, tile):
     """The width class HP each H pads to, and the paths per block: eight
-    warps of 16·32 / HP paths (csrc/sweep_wide.cuh)."""
+    warps of one 16-path tensor-core tile each at every class
+    (csrc/sweep_wide.cuh ``Mma``)."""
     assert S.wide_class(h) == hp
-    assert S.wide_tile(h) == tile
+    assert S.b4_wide_tile() == tile
 
 
 @pytest.mark.parametrize("h", [0, 129])
@@ -138,7 +139,7 @@ def test_wide_b4_blocks_stay_within_their_bound(h, batch):
     batch, so the partial buffer stays within 264 × (H² + H + 3·M·H)
     floats."""
     blocks = S.b4_wide_blocks(batch, h)
-    assert 1 <= blocks <= min(-(-batch // S.wide_tile(h)), 264)
+    assert 1 <= blocks <= min(-(-batch // S.b4_wide_tile()), 264)
     # the buffer the wide B4 is given is sized by these blocks
     assert S.b4_partial_shape(batch, 49, h) == (
         blocks, h * h + h + 3 * 49 * h)
