@@ -54,7 +54,10 @@ Phases, each fatal on failure:
      trajectory, and B1w then B2w over the paths whose two forward
      trajectories straddle no discontinuity of the gradient (a piece of the
      tables, the sign in the coupling, the payoff's kink; fewer than 1% of
-     the paths, counted in the log);
+     the paths, counted in the log); at H = 128, N = 50 on 2^12 + 37 paths,
+     the loss's and each gradient leaf's distance from a float64
+     evaluation of ``rollout_plain`` printed for B1w + B2w and for the
+     plain version (``ROLLOUT_F64_CHECK``);
 3. drive the training paths through their facades at batch 2^17, every
    kernel's launch counter set to 0 just before a path and read just
    after; each kernel must have launched exactly the times the code
@@ -92,7 +95,10 @@ Phases, each fatal on failure:
    pure-jump forms at the 96-node quadrature; the wide B3/B4 at batch 2^17
    on the 49- and 96-node sets at each of hidden 20, 64, 100, 128; the wide
    B1/B2 at N = 50, batch 2^17 at the same widths, and a step of the wide
-   speed path at hidden 64 and 128 and of the wide parity paths;
+   speed path at hidden 64 and 128 and of the wide parity paths; the VG
+   speed step's profile must hold no ``indexing_backward_kernel`` (the
+   piece select's backward is the one-hot product of ``ops/piecewise.py``,
+   not PyTorch's gather backward);
 5. drive the smart-grid MFG model (``mfg_phases``), every launch counter
    set to 0 just before and each required to read 0 just after (its
    paths reach no kernel): the comparison model (N = 95, hidden (20, 20) /
@@ -135,8 +141,9 @@ The line before the last holds the card's name and power limit
 launches on its main path, and per path under ``launches_by_path``; the
 wide sweep pair's rows at the ``merton --nbNeuron 64`` path's shapes, the
 wide rollout pair's at the hidden-64 speed path's, every width and node
-set under ``by_width``, with the tensor-core floor of the wide sweep pair
-beside its FP32 bound; the bench cells' lines under ``bench``); the last
+set under ``by_width``, with the tensor-core floor of the wide pairs
+beside their FP32 bound; the bench cells' lines under ``bench``, the
+unfused speed cell's and the VG speed step's times under ``f1``); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -306,6 +313,10 @@ WIDE_PARITY = (("parity_64", "merton", 64, N_STEPS),
 # Monte-Carlo nodes at 2^12 + 37 paths, where B4w's dW1 sums the most
 # path-node terms of any check.
 F64_CHECK = (128, ("mc", N_MC, "j", 2**12 + 37))
+# The wide rollout held to a float64 evaluation of rollout_plain: (H, N,
+# batch), the widest head at full depth, where B2w's three products in
+# split TF32 sum the most terms.
+ROLLOUT_F64_CHECK = (128, N_STEPS, 2**12 + 37)
 
 
 def fail(msg: str) -> None:
@@ -418,15 +429,15 @@ def bound(kernel, n, batch, h, p):
                                       else "bytes")
 
 
-def tc_floor(kernel, n, batch, h):
-    """The bound of a sweep kernel (B3, B4) whose H×H products run on the
-    tensor cores, as (ms, what bounds it): the larger of the products' 2H²
-    operations each (one product in B3, three in B4) at the TF32 peak, the
-    rest of ``work()``'s operations at the FP32 peak, and its bytes at the
-    HBM rate.  The wide pair's ``bound_ms``; ``bound()`` is its FP32
-    figure."""
-    flops, nbytes = work(kernel, n, batch, h, 0)
-    products = n * batch * 2 * h * h * (1 if kernel == "B3" else 3)
+def tc_floor(kernel, n, batch, h, p=PIECES):
+    """The bound of a wide kernel whose H×H products run on the tensor
+    cores, as (ms, what bounds it): the larger of the products' 2H²
+    operations each (one product in B1 and B3, three in B2 and B4) at the
+    TF32 peak, the rest of ``work()``'s operations at the FP32 peak, and its
+    bytes at the HBM rate.  The wide pairs' ``bound_ms``; ``bound()`` is
+    their FP32 figure."""
+    flops, nbytes = work(kernel, n, batch, h, p)
+    products = n * batch * 2 * h * h * (1 if kernel in ("B1", "B3") else 3)
     t_ops = max(products / PEAK_TF32_FLOPS,
                 (flops - products) / PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
@@ -695,6 +706,74 @@ def check_kernels(op, model, inputs) -> dict:
             "B2": {"max_abs_err": grad_abs, "rel_err": grad_rel}}
 
 
+def float64_model(model):
+    """``model`` with its paths started in float64, so that
+    ``rollout_plain`` runs in float64 on float64 inputs."""
+    m = dataclasses.replace(model)
+    x0 = model.x0
+    object.__setattr__(m, "init_x", lambda batch, device="cuda": torch.full(
+        (batch,), x0, dtype=torch.float64, device=device))
+    return m
+
+
+def rollout_f64_distances(op, model, inputs) -> dict:
+    """The loss's and each gradient leaf's relative distance from a float64
+    evaluation of ``rollout_plain`` on the same inputs, for ``op``'s kernels
+    (B1 then B2, through ``FusedRollout``) and for ``rollout_plain`` in
+    f32, over the paths whose three trajectories (kernel, f32, float64)
+    straddle no discontinuity of the gradient (``straddling_paths``; the
+    count is printed): {"kernel": {...}, "plain": {...}, "straddling": n},
+    each {"loss": d, leaf: d}."""
+    R = kernel_module(op)
+    gam, y0, tabs, dw, j = inputs
+    leaves = grad_leaves(gam, y0, tabs)
+    d64 = lambda t: t.detach().double().requires_grad_(t.requires_grad)
+    gam64 = {k: [d64(t) for t in v] for k, v in gam.items()}
+    tabs64 = {k: d64(v) for k, v in tabs.items()}
+    y064 = d64(y0)
+    leaves64 = grad_leaves(gam64, y064, tabs64)
+    m64 = float64_model(model)
+    res64 = R.rollout_plain(m64, gam64, y064, tabs64, dw.double(),
+                            j.double(), op.spec.time_scale, residuals=True)
+    res32 = R.rollout_plain(model, gam, y0, tabs, dw, j, op.spec.time_scale,
+                            residuals=True)
+    b1 = rollout_pair(op)[0]
+    (w1, w2, w3), (bb1, bb2, b3) = gam["W"], gam["b"]
+    weights = tuple(t.detach() for t in (w1, bb1, w2, bb2, w3))
+    ktabs = {"cc": R._fold_b3(tabs["cc"].detach(), b3.detach()),
+             "pc": tabs["pc"].detach(), "zc": tabs["zc"].detach(),
+             "lo": tabs["lo"], "hi": tabs["hi"]}
+    with torch.no_grad():
+        kxn, _, kxs, kys = b1(op.spec, weights, y0.detach(), ktabs, dw, j,
+                              save=True)
+    tabs_d = {k: v.detach().double() for k, v in tabs.items()}
+    trio = [(kxn, kxs, kys), tuple(t.detach() for t in
+                                   (res32[0], res32[2], res32[3])),
+            tuple(t.detach() for t in (res64[0], res64[2], res64[3]))]
+    trio = [tuple(t.double() for t in r) for r in trio]
+    skip = (straddling_paths(model, tabs_d, trio[0], trio[2])
+            | straddling_paths(model, tabs_d, trio[1], trio[2]))
+    keep = (~skip).double()
+    masked = lambda x, y: torch.sum(keep.to(x.dtype) * torch.square(
+        y - model.payoff(x))) / x.shape[0]
+    l64 = masked(res64[0], res64[1])
+    g64 = torch.autograd.grad(l64, leaves64)
+    out = {"straddling": int(skip.sum())}
+    for who, (x, y) in (("kernel", op(gam, y0, tabs, dw, j)),
+                        ("plain", res32[:2])):
+        lk = masked(x, y)
+        gk = torch.autograd.grad(lk, leaves)
+        d = {"loss": abs(float(lk.detach()) - float(l64.detach()))
+             / abs(float(l64.detach()))}
+        d.update({n: float((a.double() - b).norm() / b.norm())
+                  for n, a, b in zip(ROLLOUT_LEAVES, gk, g64)})
+        out[who] = d
+        print(f"{who} vs float64 over {x.shape[0] - out['straddling']} "
+              f"paths ({out['straddling']} straddle): "
+              + ", ".join(f"{n} {r:.2e}" for n, r in d.items()))
+    return out
+
+
 def kernel_calls(op, inputs):
     """(B1 call, B2 call) of ``op``'s kernels (the pair of its width) on
     detached ``inputs``, as training launches them: B1 saving its
@@ -917,11 +996,12 @@ def time_sweep(args, g, node_block=None) -> dict:
     return out
 
 
-def profile_steps(step, gen, step_ms: float, steps: int = 3):
+def profile_steps(step, gen, step_ms: float, steps: int = 3,
+                  names: list | None = None):
     """Device time per training step by kernel (torch.profiler), and the
     device's idle share against the unprofiled step time; returns (busy
     ms, device ops) per step, or None when the profiler saw no device
-    time."""
+    time.  ``names``, when given, receives every device kernel's name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -941,6 +1021,8 @@ def profile_steps(step, gen, step_ms: float, steps: int = 3):
     rows = [(e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
             for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA") and not annotation(e)]
+    if names is not None:
+        names.extend(r[2] for r in rows)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         print("profile: the profiler recorded no device time")
@@ -990,9 +1072,11 @@ def train_path(solver_kw: dict, per_step: dict, per_eval: dict, counters,
     return trainer, launches
 
 
-def time_step(trainer, tag: int, label: str, reps: int = 5):
+def time_step(trainer, tag: int, label: str, reps: int = 5,
+              names: list | None = None):
     """Device time of one training step of ``trainer``'s path (CUDA
-    events, after a warm-up), its rate, and its profile."""
+    events, after a warm-up), its rate, and its profile (every device
+    kernel's name into ``names`` when given)."""
     from deepfbsdejsolvers_torch.solvers.train import (
         make_adam, make_generator, make_step)
 
@@ -1005,7 +1089,7 @@ def time_step(trainer, tag: int, label: str, reps: int = 5):
     rate = TRAIN_BATCH * n / (step_ms * 1e-3)
     print(f"{label} train step: {step_ms:.3f} ms at batch {TRAIN_BATCH}, N "
           f"{n} ({rate:.4g} paths·steps/s)")
-    profile_steps(step, gen, step_ms, steps=2)
+    profile_steps(step, gen, step_ms, steps=2, names=names)
     return step_ms, rate
 
 
@@ -1514,6 +1598,12 @@ def main() -> int:
             wide_roll_check[(h, case)] = check_kernels(
                 R.FusedRolloutOp(m, h, n_pieces=PIECES), m, inputs)
             del inputs
+    h, n, batch = ROLLOUT_F64_CHECK
+    print(f"wide rollout at H={h}, N={n}, B={batch} against float64:")
+    m, inputs = rollout_case(model, kw, h, n, batch)
+    rollout_f64 = rollout_f64_distances(
+        R.FusedRolloutOp(m, h, n_pieces=PIECES), m, inputs)
+    del inputs
     op = R.FusedRolloutOp(model, HIDDEN, n_pieces=PIECES)
 
     # 3. the main paths: training through the facade
@@ -1596,8 +1686,19 @@ def main() -> int:
         del args, g
     scheme_ms = {scheme: time_step(trainer, 20 + k, scheme, reps=3)[0]
                  for k, (scheme, trainer) in enumerate(schemes.items())}
+    vg_speed_kernels = []
     vg_ms = {"parity": time_step(vg_parity, 40, "VG parity")[0],
-             "speed": time_step(vg_speed, 41, "VG speed")[0]}
+             "speed": time_step(vg_speed, 41, "VG speed",
+                                names=vg_speed_kernels)[0]}
+    # the piece select's backward is one_hot(k)ᵀ·ḡ (ops/piecewise.py):
+    # PyTorch's gather backward, which accumulates with atomics, must not
+    # run on the VG speed path (the plain rollout over piecewise tables)
+    gathers = [k for k in vg_speed_kernels if "indexing_backward" in k]
+    print(f"VG speed profile: {len(vg_speed_kernels)} device kernels, "
+          f"indexing_backward_kernel "
+          f"{'present: ' + gathers[0][:80] if gathers else 'absent'}")
+    if gathers:
+        fail("the piece select's backward ran PyTorch's gather backward")
     vg_ms.update({scheme: time_step(trainer, 42 + k, f"VG {scheme}",
                                     reps=3)[0]
                   for k, (scheme, trainer) in enumerate(vg_schemes.items())})
@@ -1623,10 +1724,9 @@ def main() -> int:
     times_wide_roll = {}
     for h in WIDE_WIDTHS:
         m, inputs = rollout_case(model, kw, h, N_STEPS, TRAIN_BATCH)
-        # the plain backward takes ~3.3 s at every width here (the piece
-        # gather's backward): one timed call after the warm-up
+        # the plain backward: three timed calls after the warm-up
         times_wide_roll[h] = time_kernels(
-            R.FusedRolloutOp(m, h, n_pieces=PIECES), inputs, plain_reps=1)
+            R.FusedRolloutOp(m, h, n_pieces=PIECES), inputs, plain_reps=3)
         del inputs
         print(f"wide rollout at H={h}, N={N_STEPS}, B={TRAIN_BATCH}: "
               + ", ".join(f"{k}w {v['ms']:.4f} ms (plain {v['plain_ms']:.3f})"
@@ -1654,6 +1754,15 @@ def main() -> int:
 
     # 7. the bench, through the CLI in this process
     bench = bench_phases(counters)
+    speed_rate = bench["speed"]["json"]["value"]
+    f1 = {"bench_speed_paths_steps_per_s": speed_rate,
+          "bench_speed_step_ms": 1e3 * TRAIN_BATCH * N_STEPS / speed_rate,
+          "vg_speed_step_ms": vg_ms["speed"],
+          "indexing_backward_in_vg_speed": False}
+    print(f"bench speed cell (the unfused Merton speed step, plain rollout "
+          f"over piecewise tables): {speed_rate:.4g} paths·steps/s, "
+          f"{f1['bench_speed_step_ms']:.2f} ms a step at batch "
+          f"{TRAIN_BATCH}; VG speed step {vg_ms['speed']:.3f} ms")
     for label, cell in bench.items():
         if label != "seconds":
             by_path[f"bench_{label}"] = {k: cell["launches"].get(k, 0)
@@ -1788,16 +1897,19 @@ def main() -> int:
         by_width = {}
         for h in WIDE_WIDTHS:
             hp = R.wide_class(h)
-            b_ms, b_by = bound(kind, N_STEPS, TRAIN_BATCH, h, PIECES)
+            b_ms, b_by = tc_floor(kind, N_STEPS, TRAIN_BATCH, h)
+            fp32_ms, _ = bound(kind, N_STEPS, TRAIN_BATCH, h, PIECES)
             t = times_wide_roll[h][kind]
             by_width[h] = {
                 "HP": hp, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": b_ms, "bound_by": b_by,
+                "fp32_bound_ms": fp32_ms,
                 **wide_roll_check[(h, WIDE_ROLLOUT_CHECKS[0])][kind],
                 "ptxas": ptxas.get(f"{src} {fn}<{hp}>"),
                 **occupancy_by[f"{src}<{hp}>"]}
             print(f"{k} at H={h} (HP {hp}): {t['ms']:.4f} ms (plain "
-                  f"{t['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+                  f"{t['plain_ms']:.3f} ms, tensor-core bound {b_ms:.4f} ms "
+                  f"by {b_by}; FP32 bound {fp32_ms:.4f} ms)")
         main_row = by_width[64]
         main_err = wide_roll_check[(64, WIDE_ROLLOUT_CHECKS[-1])][kind]
         record.append({
@@ -1811,8 +1923,13 @@ def main() -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None,
+            "fp32_bound_ms": main_row["fp32_bound_ms"],
             "shape": {"N": N_STEPS, "B": TRAIN_BATCH, "H": 64, "P": PIECES},
             "by_width": by_width})
+        if kind == "B2":
+            record[-1]["f64_distances"] = {
+                "H": ROLLOUT_F64_CHECK[0], "N": ROLLOUT_F64_CHECK[1],
+                "B": ROLLOUT_F64_CHECK[2], **rollout_f64}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": record, "train_step_ms": step_ms,
                       "paths_steps_per_s": rate,
@@ -1822,7 +1939,7 @@ def main() -> int:
                       "vg_train_step_ms": vg_ms,
                       "wide_train_step_ms": wide_step_ms,
                       "wide_parity_train_step_ms": wide_parity_ms,
-                      "mfg": mfg,
+                      "f1": f1, "mfg": mfg,
                       "cli": cli_out, "bench": bench, "gate": gate}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,21 @@
 // takes 2H² + 10H operations with 2H accurate tanhf, beside three degree-7
 // Clenshaw evaluations and the walk, over 16 bytes of noise and residuals.
 //
+// Why its product h1·W2 stays in FP32 (B2w takes its three on the tensor
+// cores): this kernel sets every path's trajectory, and the checks hold
+// the loss's gradient, a sum over paths of (y_N − g(x_N)) times the
+// path's sensitivities that largely cancels, to the plain version's.  The
+// plain version's f32 forward drifts from a float64 evaluation by errors
+// that the paths share (~1e-7 of y at the first steps, where the paths'
+// inputs are equal or alike), and so does any other rounding of the same
+// sums; the gradient magnifies the difference between two such drifts.
+// Summing h1·W2, Γ and the first layer in the plain version's own order
+// (one f32 fma a term, from zero, the bias added last) reproduces its
+// rounding, and its loss to the last bit on the card.  On the tensor cores
+// the kernel missed the 1e-4 check at hidden 20: 1.67e-4 with the product
+// in split TF32 (W2 in three terms) and 2.31e-4 on the FP64 tensor cores
+// (exact products, f64 sums), against 8.1e-6 for this order.
+//
 // Design: a block of eight warps takes TILE = 8·P paths, each warp P of
 // them, and walks the N steps.  Per step the lanes of each path look up its
 // piece, evaluate the compensator table and broadcast x and J over the
@@ -28,6 +43,133 @@
 #include "rollout_wide.cuh"
 
 namespace rollout_wide {
+
+// B1w's layout of the head's second layer: the hidden units spread over a
+// warp's lanes, lane l owning the U = HP / 32 units k = l + 32u, P = 16 / U
+// paths a warp; W2 in shared memory with a row stride of HP + 1 floats, so
+// that lane l reading row h at column l + 32u and row l + 32u at column k
+// are both free of bank conflicts; then b2; then the block's staged rows.
+template <int HP>
+struct Lanes {
+  static_assert(HP == 32 || HP == 64 || HP == 128, "width class");
+  static constexpr int U = HP / WARP;    // units per lane
+  static constexpr int P = 16 / U;       // paths per warp
+  static constexpr int TILE = WARPS * P; // paths per block
+  static constexpr int SPAN = WARP / P;  // lanes per path
+  static constexpr int LDW = HP + 1;
+  static constexpr int W2 = 0;
+  static constexpr int B2 = (HP * LDW + 3) / 4 * 4;
+  static constexpr int H1S = B2 + HP;
+  static_assert(H1S % 4 == 0, "staged rows are read as float4s");
+};
+
+
+// The first layer's rows t, x, J, b1, b2 and W3 at the lane's units k =
+// lane + 32u, zero past h.
+template <int U>
+struct Units {
+  float wt[U], wx[U], wj[U], b1[U], b2[U], w3[U];
+
+  __device__ __forceinline__ void load(const float* __restrict__ w1,
+                                       const float* __restrict__ b1_,
+                                       const float* __restrict__ b2_,
+                                       const float* __restrict__ w3_, int h,
+                                       int lane) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = lane + WARP * u;
+      const bool in = k < h;
+      wt[u] = in ? __ldg(w1 + k) : 0.0f;
+      wx[u] = in ? __ldg(w1 + h + k) : 0.0f;
+      wj[u] = in ? __ldg(w1 + 2 * h + k) : 0.0f;
+      b1[u] = in ? __ldg(b1_ + k) : 0.0f;
+      b2[u] = in ? __ldg(b2_ + k) : 0.0f;
+      w3[u] = in ? __ldg(w3_ + k) : 0.0f;
+    }
+  }
+};
+
+// v[p] of lane ``lane`` for each of the warp's P paths: the value that the
+// path's first lane holds.
+template <int P>
+__device__ __forceinline__ void gather_paths(float v, float (&out)[P]) {
+  constexpr int SPAN = WARP / P;
+#pragma unroll
+  for (int p = 0; p < P; ++p) out[p] = __shfl_sync(FULL, v, p * SPAN);
+}
+
+// h1[p][u] = tanh(t·W1[t, k] + x_p·W1[x, k] + J_p·W1[J, k] + b1[k]) at the
+// lane's units, in the sum order of rollout::first_layer, written to the
+// warp's staging rows ``stage`` (P rows of HP); returns them too.
+template <int HP>
+__device__ __forceinline__ void first_layer(
+    const Units<Lanes<HP>::U>& w, float ti, const float (&x)[Lanes<HP>::P],
+    const float (&j)[Lanes<HP>::P], int lane,
+    float (&h1)[Lanes<HP>::P][Lanes<HP>::U], float* stage) {
+  using L = Lanes<HP>;
+#pragma unroll
+  for (int u = 0; u < L::U; ++u)
+#pragma unroll
+    for (int p = 0; p < L::P; ++p) {
+      h1[p][u] = tanhf(w.wt[u] * ti + w.wx[u] * x[p] + w.wj[u] * j[p] +
+                       w.b1[u]);
+      stage[p * HP + lane + WARP * u] = h1[p][u];
+    }
+}
+
+// z[p][u] = Σ_h h1[p][h]·W2[h][k] + b2[k] at the lane's units, the sum over
+// h in order from zero and the bias added last, as the plain version's
+// matmul and add round it; h1 is read from the warp's staging rows as
+// float4 broadcasts and W2 from shared memory (rows of LDW: lane l reads
+// bank h + l, no conflicts).
+template <int HP>
+__device__ __forceinline__ void second_layer(
+    const float* sm, const Units<Lanes<HP>::U>& w, int lane,
+    const float* stage, float (&z)[Lanes<HP>::P][Lanes<HP>::U]) {
+  using L = Lanes<HP>;
+#pragma unroll
+  for (int u = 0; u < L::U; ++u)
+#pragma unroll
+    for (int p = 0; p < L::P; ++p) z[p][u] = 0.0f;
+#pragma unroll 2
+  for (int q = 0; q < HP / 4; ++q) {
+    float4 hv[L::P];
+#pragma unroll
+    for (int p = 0; p < L::P; ++p) hv[p] = quad(stage + p * HP, q);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* wrow = sm + (4 * q + j) * L::LDW + lane;
+#pragma unroll
+      for (int u = 0; u < L::U; ++u) {
+        const float wv = wrow[WARP * u];
+#pragma unroll
+        for (int p = 0; p < L::P; ++p) z[p][u] += lane_of(hv[p], j) * wv;
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < L::U; ++u)
+#pragma unroll
+    for (int p = 0; p < L::P; ++p) z[p][u] += w.b2[u];
+}
+
+// W2 and b2 of width h into shared memory in ``Lanes``' layout, zero past
+// h.
+template <int HP>
+__device__ __forceinline__ void load_weights(float* sm,
+                                             const float* __restrict__ w2,
+                                             const float* __restrict__ b2,
+                                             int h) {
+  using L = Lanes<HP>;
+  for (int q = threadIdx.x; q < HP * HP; q += blockDim.x) {
+    const int row = q / HP, col = q % HP;
+    sm[L::W2 + row * L::LDW + col] =
+        (row < h && col < h) ? __ldg(w2 + row * h + col) : 0.0f;
+  }
+  for (int q = threadIdx.x; q < HP; q += blockDim.x)
+    sm[L::B2 + q] = q < h ? __ldg(b2 + q) : 0.0f;
+}
+
 
 template <int HP>
 struct Fwd {
@@ -59,7 +201,7 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   const bool active = b < batch;
   using F = Fwd<HP>;
   float* stage = sm + F::STAGE + warp * P * HP;
-  sweep_wide::load_weights<HP>(sm, w2, b2, h);
+  load_weights<HP>(sm, w2, b2, h);
   for (int q = threadIdx.x; q < HP; q += THREADS)
     sm[F::W3 + q] = q < h ? __ldg(w3 + q) : 0.0f;
   Units<U> wu;

@@ -10,7 +10,7 @@
 // Replaces the Pallas kernel of the JAX package's ops/pallas_sweep.py
 // _bwd_kernel (its call site is _fused_sweep_bwd) at the widths it takes
 // beyond 8 and 21.  The TPU kernel takes a tile's three H×H products on the
-// MXU; here they go to the tensor cores in split TF32 (sweep_wide.cuh).
+// MXU; here they go to the tensor cores in split TF32 (tc_split.cuh).
 //
 // What bounds it on an H100: the three products Z = h1·W1 (recomputed),
 // S = dz2·W1ᵀ and dW1 += h1ᵀ·dz2, 6H² operations per path and node (3·6H²
@@ -19,14 +19,14 @@
 //
 // Design: a fixed number of blocks (ops/sweep.py b4_wide_blocks, at most
 // 264) each walk their 128-path tiles in order, eight warps of one m16 tile
-// of 16 paths each.  W1 sits in shared memory once, in f32 (sweep_wide.cuh
-// w1_at: a layout that serves both products' fragments), and is split into
+// of 16 paths each.  W1 sits in shared memory once, in f32 (tc_split.cuh
+// tc::w_at: a layout that serves both products' fragments), and is split into
 // hi and lo as its fragments are read: its split planes and the staging
 // below do not fit the 227 KB of a block together at HP = 128.  A node's
 // rows of a, c and v are double-buffered in shared memory, the next loaded
 // while the block sums the current one.  Per node:
 //   * each warp computes h1 of its 16 paths at its lanes' units (the A
-//     layout of sweep_wide.cuh) into its staging rows, then Z = h1·W1 four
+//     layout of tc_split.cuh) into its staging rows, then Z = h1·W1 four
 //     n-tiles at a time (the A fragments read back from the staging rows,
 //     split; hi·hi and the cross terms in two accumulators), then b1, h2,
 //     dz2 = g·v·(1 − h2²) into the staging rows, and the sums of g·h2 (dv)
@@ -65,7 +65,7 @@ struct Bwd {
   static constexpr int TM = MT / WM, TN = NB / WN;
   static_assert(WM * WN == WARPS && TM * WM == MT && TN * WN == NB,
                 "the warps tile dW1");
-  // shared memory, floats: W1 (w1_at) | b1 (HP) | two buffers of a node's
+  // shared memory, floats: W1 (w_at) | b1 (HP) | two buffers of a node's
   // a, c, v rows (3 HP each) | the tile's h1 rows (TILE of LDS) | its dz2
   // rows | per warp the node's da, dc, dv, db1 (4 HP)
   static constexpr int W1 = 0;
@@ -129,15 +129,15 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
   const int s0 = gq * LDS + 2 * t, s1 = s0 + 8 * LDS;
   // offsets in an 8 × 8 block of W1: h1·W1's b0 (row 2t, column g; b1 is
   // the next float), dz2·W1ᵀ's b0 (row g, column 2t) and b1 (column 2t + 1)
-  const int oz = w1_at<HP>(2 * t, gq);
-  const int os0 = w1_at<HP>(gq, 2 * t), os1 = w1_at<HP>(gq, 2 * t + 1);
+  const int oz = w_at<HP>(2 * t, gq);
+  const int os0 = w_at<HP>(gq, 2 * t), os1 = w_at<HP>(gq, 2 * t + 1);
   // this warp's tile of dW1: rows 16·(TM·wm + i) + …, columns 8·(TN·wn + j)
   const int wm = warp % B::WM, wn = warp / B::WM;
   float* ws = sm + B::WS;
 
   for (int q = tid; q < HP * HP; q += THREADS) {
     const int row = q / HP, col = q % HP;
-    sm[B::W1 + w1_at<HP>(row, col)] =
+    sm[B::W1 + w_at<HP>(row, col)] =
         (row < h && col < h) ? __ldg(w1 + row * h + col) : 0.0f;
   }
   for (int q = tid; q < HP; q += THREADS)

@@ -7,7 +7,7 @@
 // _fwd_kernel (its call site is _fused_sweep_fwd_impl) at the widths it
 // takes beyond those two.  The TPU kernel packs 128 // H nodes into a
 // block-diagonal matrix for the MXU; here the H×H product goes to the
-// tensor cores in split TF32 (sweep_wide.cuh), node by node.
+// tensor cores in split TF32 (tc_split.cuh), node by node.
 //
 // What bounds it on an H100: per path and node the product h1·W1 (2H²
 // operations, 3·2H² on the tensor cores in split TF32) and 7H FP32
@@ -21,7 +21,7 @@
 // tile, and walks the nodes in order, NODE_CHUNK rows of a, c, v at a time
 // staged in shared memory beside W1's split fragments (staged once: hi of
 // b0 and b1, then lo of both, as one float4 per lane and 8 × 8 block, in
-// the permuted order of sweep_wide.cuh, so that each pair loads into two
+// the permuted order of tc_split.cuh, so that each pair loads into two
 // consecutive registers as the mma takes it).  Per node a lane computes
 // the first layer of its two paths at its units 8k + 2t, 8k + 2t + 1
 // straight into the A layout and splits it (hi, lo in registers for the

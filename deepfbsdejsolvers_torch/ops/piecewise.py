@@ -8,10 +8,14 @@ function is sampled at D Chebyshev points and the local Chebyshev
 coefficients come from the inverse of the collocation matrix T_k(t_i),
 which is sqrt(2)-conditioned at every degree.
 
-The per-path piece select is an exact gather (``coef[k]``), where the JAX
-package uses a one-hot matmul because gathers are slow on a TPU.  Piece
-index and interval ends are detached; points outside the interval clamp to
-its boundary, with derivative 0 past the edge.
+The per-path piece select (``select_rows``) is the JAX package's one-hot
+matmul written as an autograd function: its forward gathers ``coef[k]``,
+so every selected coefficient keeps its bits, and its backward is the
+one-hot product one_hot(k)ᵀ·ḡ, a (P × B)·(B × D) matmul, so the cotangent
+of the table is summed in a fixed order (no float atomics: PyTorch's own
+gather backward accumulates with atomics on the card, serialised over the
+few pieces).  Piece index and interval ends are detached; points outside
+the interval clamp to its boundary, with derivative 0 past the edge.
 """
 
 from __future__ import annotations
@@ -78,6 +82,31 @@ def pw_fit(values: torch.Tensor, n_pieces: int, degree: int) -> torch.Tensor:
     return torch.matmul(v, fit.T)
 
 
+class _SelectRows(torch.autograd.Function):
+    """rows = coef[k] for coef (P, D) and piece indices k (int64, any
+    shape); the cotangent of coef is one_hot(k)ᵀ·ḡ."""
+
+    @staticmethod
+    def forward(ctx, coef, k):
+        ctx.save_for_backward(k)
+        ctx.n_pieces = coef.shape[-2]
+        return coef[k]
+
+    @staticmethod
+    def backward(ctx, g):
+        (k,) = ctx.saved_tensors
+        p, d = ctx.n_pieces, g.shape[-1]
+        pieces = torch.arange(p, device=k.device)
+        onehot = (k.reshape(-1, 1) == pieces).to(g.dtype)
+        return onehot.T @ g.reshape(-1, d), None
+
+
+def select_rows(coef: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """coef[k] (the per-path coefficient rows of piece indices ``k``), with
+    the deterministic one-hot backward of ``_SelectRows``."""
+    return _SelectRows.apply(coef, k)
+
+
 def _locate(coef: torch.Tensor, x: torch.Tensor, x_lo: torch.Tensor,
             x_hi: torch.Tensor):
     """(per-path coefficient rows (B, D), local t, s_raw, span)."""
@@ -88,7 +117,7 @@ def _locate(coef: torch.Tensor, x: torch.Tensor, x_lo: torch.Tensor,
     s = torch.clamp(s_raw, 0.0, 1.0) * p
     k = torch.clamp(torch.floor(s), 0, p - 1).detach()
     t = 2.0 * (s - k) - 1.0
-    return coef[k.long()], t, s_raw, span
+    return select_rows(coef, k.long()), t, s_raw, span
 
 
 def pw_eval(coef: torch.Tensor, x: torch.Tensor, x_lo: torch.Tensor,

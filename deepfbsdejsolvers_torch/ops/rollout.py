@@ -54,11 +54,16 @@ _B2_TILE = 128
 _B2_MAX_BLOCKS = 4 * 132
 # The widest head the wide kernels take: the JAX package's Pallas rollout
 # and sweep take two equal tanh layers up to 128 wide.  The width classes
-# of the wide kernels of both (csrc/sweep_wide.cuh, csrc/rollout_wide.cuh),
-# and the most blocks the wide B2 launches, two per SM of an H100.
+# of the wide kernels of both (csrc/tc_split.cuh), the paths a block of the
+# wide B2 carries at every class (eight warps of one m16 tile), and its
+# resident blocks per SM of an H100 by class (its shared memory and
+# registers: csrc/rollout_wide_bwd.cu), which bound the blocks it
+# launches.
 ROLLOUT_MAX_WIDTH = 128
 _WIDE_CLASSES = (32, 64, 128)
-_WIDE_B2_MAX_BLOCKS = 2 * 132
+_WIDE_TILE = 128
+_WIDE_B2_BLOCKS_PER_SM = {32: 2, 64: 2, 128: 1}
+_SMS = 132
 
 
 def wide_class(h: int) -> int:
@@ -71,9 +76,11 @@ def wide_class(h: int) -> int:
 
 
 def wide_tile(h: int) -> int:
-    """Paths per block of the wide kernels at hidden width ``h``: eight
-    warps of 16·32 / HP paths each."""
-    return 8 * 16 * 32 // wide_class(h)
+    """Paths per block of the wide B2 at hidden width ``h``: eight warps of
+    one m16 tile of 16 paths each, at every width class (the wide B1's
+    blocks take 16·32·8 / HP paths, csrc/rollout_wide_fwd.cu)."""
+    wide_class(h)
+    return _WIDE_TILE
 
 
 def table_eval(coef: torch.Tensor, x: torch.Tensor, lo: torch.Tensor,
@@ -304,8 +311,8 @@ def b1_wide_forward(spec: KernelSpec, weights, y0, tables, dw, j,
                     save: bool):
     """Kernel B1 at every hidden width up to ``ROLLOUT_MAX_WIDTH`` bar
     ``KERNEL_WIDTHS``: each warp carries a few paths through the N steps,
-    its lanes sharing the hidden units.  Arguments and returns as
-    ``b1_forward``."""
+    its lanes sharing the hidden units, the head's sums in the plain
+    version's f32 order.  Arguments and returns as ``b1_forward``."""
     out = _launch_fwd("rollout_wide_fwd", True, spec, weights, y0, tables,
                       dw, j, save)
     b1_wide_forward.launches += 1
@@ -323,9 +330,10 @@ def b2_blocks(batch: int) -> int:
 
 def b2_wide_blocks(batch: int, h: int) -> int:
     """Thread blocks of the wide B2 for ``batch`` paths at hidden width
-    ``h``: one per tile up to a fixed maximum, each walking its tiles in
-    order."""
-    return min(-(-batch // wide_tile(h)), _WIDE_B2_MAX_BLOCKS)
+    ``h``: one per tile up to the blocks the card holds at once at the
+    width class, each walking its tiles in order."""
+    cap = _WIDE_B2_BLOCKS_PER_SM[wide_class(h)] * _SMS
+    return min(-(-batch // wide_tile(h)), cap)
 
 
 def b2_partial_shape(n: int, batch: int, h: int, p: int):
@@ -386,10 +394,10 @@ def b2_wide_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn,
                      cyn):
     """Kernel B2 at every hidden width up to ``ROLLOUT_MAX_WIDTH`` bar
     ``KERNEL_WIDTHS``: at most ``b2_wide_blocks(B, H)`` blocks walk their
-    tiles in order, each warp replaying a few paths with its lanes sharing
-    the hidden units, the block summing h1ᵀ·dp2 as register micro-tiles and
-    the table cotangents per step in path order; a second kernel sums the
-    blocks' partials in block order.  Arguments and returns as
+    128-path tiles in order, each warp replaying 16 paths, the head's three
+    H×H products (h1ᵀ·dp2 block-wide) on the tensor cores in split TF32,
+    the table cotangents summed per step in a fixed order; a second kernel
+    sums the blocks' partials in block order.  Arguments and returns as
     ``b2_backward``."""
     out = _launch_bwd("rollout_wide_bwd", True, spec, weights, tables, dw, j,
                       xs, ys, cxn, cyn)

@@ -1,7 +1,7 @@
-"""A/B of the port's CUDA kernels B1–B4, or of the wide sweep pair, on one
-CUDA card.
+"""A/B of the port's CUDA kernels B1–B4, of the wide sweep pair or of the
+wide rollout pair, on one CUDA card.
 
-    python3 kernel_ab.py [--against DIR] [--wide]
+    python3 kernel_ab.py [--against DIR] [--wide | --wide-rollout]
 
 Builds the four kernels (``csrc/rollout_fwd.cu``, ``rollout_bwd.cu``,
 ``sweep_fwd.cu``, ``sweep_bwd.cu``) of this checkout and, with
@@ -41,6 +41,22 @@ for the plain version; the kernels timed in turns at B = 2^17 at each
 hidden width on the 49 nodes on J and at 128 on the 96 nodes on X·J, with
 their FP32 bound and tensor-core bound; and a training step of each of
 ``WIDE_PARITY``'s paths (the parity path at hidden 64 and 128) in turns.
+
+With ``--wide-rollout`` it takes the wide rollout pair B1w/B2w instead
+(``csrc/rollout_wide_fwd.cu``, ``rollout_wide_bwd.cu``), each build through
+its own version's ``ops/rollout.py`` (whose tiling and B2w block count may
+differ): ``check_kernels`` at hidden 20, 64, 100 and 128 at N = 50 on
+2^14 + 37 paths (B1w's forward and loss, B2w's gradients two ways, each
+leaf and as a whole, B2w bit for bit on rerun), and whether B1w's outputs
+equal the first build's bit for bit; ``chip_smoke.py``'s
+``ROLLOUT_F64_CHECK`` (H = 128, N = 50, 2^12 + 37 paths), the loss's and
+each gradient leaf's distance from a float64 evaluation for each build's
+kernels and for the plain version; the kernels timed in turns at N = 50,
+B = 2^17 at each hidden width, with their FP32 bound and tensor-core
+bound; and a training step of the fused speed path at hidden 64 and 128
+in turns.  Its ptxas and SASS report covers the wide sweep pair of each
+build too (their sources share a header with the wide rollout's), and it
+prints each build's shared memory and blocks per SM of B1w and B2w.
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ import torch
 
 NAMES = ("rollout_fwd", "rollout_bwd", "sweep_fwd", "sweep_bwd")
 WIDE_NAMES = ("sweep_wide_fwd", "sweep_wide_bwd")
+WIDE_ROLLOUT_NAMES = ("rollout_wide_fwd", "rollout_wide_bwd")
 # the wide pair's timed shapes at B = 2^17: (hidden, form), the 49 nodes on
 # J ("j") or the 96 nodes on X·J ("x_prop")
 WIDE_TIMES = ((20, "j"), (64, "j"), (100, "j"), (128, "j"), (128, "x_prop"))
@@ -273,11 +290,128 @@ def wide_ab(C, dirs: dict) -> None:
         del solver, params, step
 
 
+@contextlib.contextmanager
+def rollout_of(mod, libs: dict):
+    """The port's rollout wrappers launch the kernels of ``libs`` with the
+    B2w block count of ``mod`` (another version's ``ops/rollout.py``)
+    inside, so the package's solvers train on that build as its own
+    wrappers would launch it."""
+    from deepfbsdejsolvers_torch.ops import rollout as R
+
+    saved = R.b2_wide_blocks
+    R.b2_wide_blocks = mod.b2_wide_blocks
+    try:
+        with using(libs):
+            yield
+    finally:
+        R.b2_wide_blocks = saved
+
+
+def wide_rollout_ab(C, dirs: dict) -> None:
+    """``--wide-rollout``: the wide rollout pair of each build through its
+    own ``ops/rollout.py``: checks, float64 distances, kernel times and the
+    wide fused speed steps, in turns."""
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+    from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
+    from deepfbsdejsolvers_torch.solvers.train import (
+        make_adam, make_generator, make_step)
+
+    names = WIDE_ROLLOUT_NAMES + WIDE_NAMES
+    built = {label: build(csrc, names) for label, csrc in dirs.items()}
+    mods = {label: ops_module(csrc, "rollout") for label, csrc in dirs.items()}
+    for label, csrc in dirs.items():
+        print_build(label, csrc, names)
+    order = list(built)
+    for label in order:
+        with using(built[label]):
+            for name in WIDE_ROLLOUT_NAMES:
+                for hp in (32, 64, 128):
+                    smem, blocks = C.occupancy(name, hp)
+                    print(f"{label} {name}<{hp}>: {smem} bytes of shared "
+                          f"memory per block, {blocks} blocks per SM")
+    model, kw = C.speed_config()
+    ops = lambda m, h: {label: mods[label].FusedRolloutOp(
+        m, h, n_pieces=C.PIECES) for label in order}
+
+    # checks at each width, B1w's outputs across builds, and float64 at
+    # ROLLOUT_F64_CHECK
+    for h in C.WIDE_WIDTHS:
+        m, inputs = C.rollout_case(model, kw, h, C.N_STEPS, C.CHECK_BATCH)
+        outs = {}
+        for label, op in ops(m, h).items():
+            print(f"{label} H={h} N={C.N_STEPS} B={C.CHECK_BATCH}:")
+            with rollout_of(mods[label], built[label]):
+                C.check_kernels(op, m, inputs)
+                outs[label] = C.kernel_calls(op, inputs)[0]()
+        for label in order:
+            same = all(torch.equal(a, b) for a, b in
+                       zip(outs[label], outs[order[0]]))
+            print(f"{label} H={h}: B1w outputs (x_N, y_N, xs, ys) "
+                  f"bit-identical to {order[0]}'s: {same}")
+        del inputs, outs
+    h, n, batch = C.ROLLOUT_F64_CHECK
+    m, inputs = C.rollout_case(model, kw, h, n, batch)
+    for label, op in ops(m, h).items():
+        print(f"{label} H={h} N={n} B={batch} against float64:")
+        with rollout_of(mods[label], built[label]):
+            C.rollout_f64_distances(op, m, inputs)
+    del inputs
+
+    # kernel times, in turns
+    for h in C.WIDE_WIDTHS:
+        m, inputs = C.rollout_case(model, kw, h, C.N_STEPS, C.TRAIN_BATCH)
+        calls = {}
+        for label, op in ops(m, h).items():
+            with rollout_of(mods[label], built[label]):
+                calls[label] = C.kernel_calls(op, inputs)
+        times = {label: {"B1w": [], "B2w": []} for label in order}
+        for label in order + order + order[::-1]:
+            fwd, bwd = calls[label]
+            with rollout_of(mods[label], built[label]):
+                times[label]["B1w"].append(C.kernel_ms(fwd, 20))
+                times[label]["B2w"].append(C.kernel_ms(bwd, 20))
+        for label in order:
+            t = {k: v[1:] for k, v in times[label].items()}
+            print(f"wide rollout H={h} N={C.N_STEPS} B={C.TRAIN_BATCH} "
+                  f"{label}: " + ", ".join(
+                      f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in t.items()))
+        for k in ("B1", "B2"):
+            b_ms, _ = C.bound(k, C.N_STEPS, C.TRAIN_BATCH, h, C.PIECES)
+            print(f"wide rollout H={h} {k}w: FP32 bound {b_ms:.4f} ms, "
+                  f"tensor-core bound "
+                  f"{C.tc_floor(k, C.N_STEPS, C.TRAIN_BATCH, h)[0]:.4f} ms")
+        del inputs, calls
+
+    # the wide fused speed steps, in turns
+    for h in C.WIDE_TRAIN_WIDTHS:
+        solver = PricingSolver(model, "global", hidden=(h, h), **kw)
+        params = solver.init_params(make_generator("cpu", C.SEED, 0))
+        for t in param_leaves(params):
+            t.requires_grad_(True)
+        step = make_step(solver.build_loss(C.TRAIN_BATCH),
+                         make_adam(params, 4e-4), params)
+        gen = make_generator("cuda", C.SEED, 60 + h)
+        times = {label: [] for label in order}
+        for label in order + order + order[::-1]:
+            with rollout_of(mods[label], built[label]):
+                times[label].append(C.cuda_ms(lambda: step(gen), reps=5))
+        for label in order:
+            t = times[label][1:]
+            print(f"speed step at hidden ({h}, {h}), batch {C.TRAIN_BATCH} "
+                  f"{label}: {t[0]:.3f} / {t[1]:.3f} ms")
+        del solver, params, step
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="another version's csrc directory")
-    ap.add_argument("--wide", action="store_true",
-                    help="A/B the wide sweep pair B3w/B4w instead of B1–B4")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--wide", action="store_true",
+                       help="A/B the wide sweep pair B3w/B4w instead of "
+                            "B1–B4")
+    which.add_argument("--wide-rollout", action="store_true",
+                       help="A/B the wide rollout pair B1w/B2w instead of "
+                            "B1–B4")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -292,8 +426,8 @@ def main() -> int:
     dirs = {"this": _build.CSRC}
     if opts.against:
         dirs = {"against": Path(opts.against).resolve(), **dirs}
-    if opts.wide:
-        wide_ab(C, dirs)
+    if opts.wide or opts.wide_rollout:
+        (wide_ab if opts.wide else wide_rollout_ab)(C, dirs)
         print_smi()
         return 0
     built = {label: build(csrc) for label, csrc in dirs.items()}

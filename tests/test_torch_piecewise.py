@@ -1,6 +1,10 @@
 """The port's collocation ops equal the JAX package's: piecewise nodes, fit,
 evaluation and derivative (with clamping past the interval), the global
-Chebyshev interpolant, and the compensator's quadrature rule."""
+Chebyshev interpolant, and the compensator's quadrature rule.  The piece
+select (``select_rows``, a gather whose backward is the one-hot product
+one_hot(k)ᵀ·ḡ, as the JAX package's one-hot matmul differentiates) gives
+JAX's gradients with respect to the table and the points, the old plain
+gather's forward bit for bit, and the same bits on every backward run."""
 
 import jax
 import jax.numpy as jnp
@@ -75,6 +79,104 @@ def test_eval_and_derivative_equal_jax_with_clamping():
     (g,) = torch.autograd.grad(
         tp.pw_eval(args_t[0], xt, *args_t[2:]).sum(), xt)
     np.testing.assert_allclose(g.numpy(), dval.numpy(), rtol=1e-5, atol=1e-6)
+
+
+SELECT_CASES = {
+    # points strictly inside [LO, HI], every piece hit
+    "interior": lambda x: x[(x > LO) & (x < HI)],
+    # points past both ends, which clamp to the end pieces (a point on an
+    # end is left out: there torch.clamp and jnp.clip take different
+    # subgradients, whatever the select)
+    "clamped": lambda x: np.concatenate(
+        [x[(x < LO) | (x > HI)],
+         np.array([LO - 1.0, LO - 1e-3, HI + 1e-3, HI + 2.0], np.float32)]),
+}
+
+
+def _select_args(case):
+    _, coef = _coef()
+    x = SELECT_CASES[case](_x()).astype(np.float32)
+    rng = np.random.default_rng(7)
+    w = rng.standard_normal((2, x.size)).astype(np.float32)
+    return coef, x, w
+
+
+@pytest.mark.parametrize("case", sorted(SELECT_CASES))
+def test_select_grads_equal_jax(case):
+    """The value and the gradients with respect to the table and the points
+    of pw_eval and pw_eval_with_deriv equal JAX's (its one-hot matmul
+    select), at the tolerances of the evaluation test above."""
+    coef, x, w = _select_args(case)
+    lo, hi = jnp.asarray(LO), jnp.asarray(HI)
+
+    def jax_loss(c, xx):
+        val, dval = jp.pw_eval_with_deriv(c, xx, lo, hi)
+        return (jnp.sum(w[0] * jp.pw_eval(c, xx, lo, hi))
+                + jnp.sum(w[1] * (val + dval)))
+
+    with jax.default_matmul_precision("highest"):
+        jgc, jgx = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(coef),
+                                                      jnp.asarray(x))
+    tc = torch.tensor(coef, requires_grad=True)
+    tx = torch.tensor(x, requires_grad=True)
+    tw = torch.tensor(w)
+    tlo, thi = torch.tensor(LO), torch.tensor(HI)
+    val, dval = tp.pw_eval_with_deriv(tc, tx, tlo, thi)
+    value = tp.pw_eval(tc, tx, tlo, thi)
+    np.testing.assert_allclose(
+        value.detach().numpy(),
+        np.asarray(jp.pw_eval(jnp.asarray(coef), jnp.asarray(x), lo, hi)),
+        rtol=1e-6, atol=1e-7)
+    loss = torch.sum(tw[0] * value) + torch.sum(tw[1] * (val + dval))
+    gc, gx = torch.autograd.grad(loss, [tc, tx])
+    np.testing.assert_allclose(gc.numpy(), np.asarray(jgc), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(SELECT_CASES))
+def test_select_forward_is_the_gather_bit_for_bit(case):
+    coef, x, _ = _select_args(case)
+    ct, xt = torch.tensor(coef), torch.tensor(x)
+    lo, hi = torch.tensor(LO), torch.tensor(HI)
+    p = ct.shape[-2]
+    s = torch.clamp((xt - lo) / torch.clamp(hi - lo, min=1e-6), 0.0, 1.0) * p
+    k = torch.clamp(torch.floor(s), 0, p - 1).long()
+    assert torch.equal(tp.select_rows(ct, k), ct[k])
+    rows, t, _, _ = tp._locate(ct, xt, lo, hi)
+    assert torch.equal(rows, ct[k])
+    assert torch.equal(tp.pw_eval(ct, xt, lo, hi), tc.cheb_series(ct[k], t))
+
+
+@pytest.mark.parametrize("case", sorted(SELECT_CASES))
+def test_select_backward_is_deterministic_and_one_hot(case):
+    """Two backward runs give the same bits, and the table's cotangent is
+    one_hot(k)ᵀ·ḡ: each piece's row is the sum of its points' ḡ rows."""
+    coef, x, w = _select_args(case)
+    tlo, thi = torch.tensor(LO), torch.tensor(HI)
+    tw = torch.tensor(w[0])
+
+    def grads():
+        tc = torch.tensor(coef, requires_grad=True)
+        tx = torch.tensor(x, requires_grad=True)
+        val, dval = tp.pw_eval_with_deriv(tc, tx, tlo, thi)
+        return torch.autograd.grad(torch.sum(tw * (val + dval)), [tc, tx])
+
+    first, second = grads(), grads()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    tc = torch.tensor(coef)
+    k = torch.tensor([0, 3, 3, 7, 7, 7])
+    g = torch.tensor(np.random.default_rng(3).standard_normal((6, DEG + 1)),
+                     dtype=torch.float32)
+    leaf = tc.clone().requires_grad_(True)
+    (gc,) = torch.autograd.grad(tp.select_rows(leaf, k), [leaf], g)
+    want = torch.zeros_like(tc)
+    for row, piece in zip(g, k.tolist()):
+        want[piece] += row
+    np.testing.assert_allclose(gc.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    assert torch.equal(gc[[1, 2, 4, 5, 6]], torch.zeros(5, DEG + 1))
 
 
 def test_chebyshev_interp_equals_jax():

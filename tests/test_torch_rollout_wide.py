@@ -188,25 +188,28 @@ def test_wide_wrappers_refuse_the_specialised_widths(h):
 @pytest.mark.parametrize("batch", [1, 37, 2**14 + 37, 2**17 + 37, 2**20])
 def test_b2_partials_stay_within_a_bound_of_the_batch(h, batch):
     """Every block walks at least one tile, and the partial buffer stays
-    within a block count fixed by the width class (528 specialised blocks
-    of 128 paths, 264 wide ones) times H² + 6H + 1 + N·3·P·D floats,
+    within a block count fixed by the width (528 specialised blocks of 128
+    paths; wide ones of 128 paths, as many as an H100 holds at once: 264 at
+    the classes 32 and 64, 132 at 128) times H² + 6H + 1 + N·3·P·D floats,
     whatever the batch."""
     n, p = 50, 8
     blocks, per_block = R.b2_partial_shape(n, batch, h, p)
     assert per_block == h * h + 6 * h + 1 + n * 3 * p * R.KERNEL_COEFFS
     tile = 128 if h in (8, 21) else R.wide_tile(h)
-    cap = 528 if h in (8, 21) else 264
+    cap = 528 if h in (8, 21) else (132 if h > 64 else 264)
     assert 1 <= blocks <= min(-(-batch // tile), cap)
 
 
-@pytest.mark.parametrize("h,hp,tile", [(1, 32, 128), (20, 32, 128),
-                                       (33, 64, 64), (64, 64, 64),
-                                       (100, 128, 32), (128, 128, 32)])
-def test_wide_classes_and_tiles(h, hp, tile):
+@pytest.mark.parametrize("h,hp,cap", [(1, 32, 264), (20, 32, 264),
+                                      (33, 64, 264), (64, 64, 264),
+                                      (100, 128, 132), (128, 128, 132)])
+def test_wide_classes_and_tiles(h, hp, cap):
     """The width class each H pads to, and the paths per block, eight warps
-    of 16·32 / HP paths (csrc/rollout_wide.cuh, as the wide sweep)."""
-    assert R.wide_class(h) == hp and R.wide_tile(h) == tile
-    assert R.b2_wide_blocks(2**17, h) == min(2**17 // tile, 264)
+    of one m16 tile of 16 paths at every class (csrc/rollout_wide.cuh, as
+    the wide sweep); the wide B2's blocks at batch 2^17, capped by those
+    an H100 holds at once at the class."""
+    assert R.wide_class(h) == hp and R.wide_tile(h) == 128
+    assert R.b2_wide_blocks(2**17, h) == min(2**17 // 128, cap)
 
 
 def test_wide_scalars_carry_r_dt():
