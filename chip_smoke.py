@@ -134,7 +134,25 @@ Phases, each fatal on failure:
 8. run the accuracy gate ``merton_speed_fused`` through the port's gate
    runner at its registered budget (3 seeds × 2400 steps, batch 8192,
    warm Y0): it must pass (|Y0 − 0.271457| ≤ 1e-3 on every seed) and
-   launch B1 and B2 once per step.
+   launch B1 and B2 once per step;
+9. data parallelism (``dp_phases``), ranks started by ``spawn`` on this
+   one card (the kernels built once, in phase 1), each reporting its
+   launches, losses and parameter digests, a rank still running after
+   ``DP_TIMEOUT`` failing the phase: (a) a world of one on NCCL, the fused
+   speed configuration 2 × 2 steps through ``fit(mesh=...)``, bit for bit
+   the run without a mesh; (b) two gloo ranks of 2^16 paths, the fused
+   speed configuration: mesh loss and gradients against the serial mean
+   of both shards, B1/B2 launches exact, the params bit-identical across
+   ranks after every step; (c) four gloo ranks as (data 2, comp 2), the
+   parity configuration with the 49-node quadrature padded to 50, B3/B4
+   sweeping 25 nodes a rank: loss and gradients against the same world
+   unsharded, and both against a float64 evaluation, B4 bit-identical on
+   rerun, launches exact; the step times of (b) and (c) beside a step in
+   one process at batch 2^17 (the ranks share the card: the figures show
+   the collectives' cost, not a scaling); (d) the dry run
+   (``experiments/dryrun_multichip.py``) at 4 ranks; (e) ``merton
+   --dataParallel --methods Global`` under ``torch.distributed.run
+   --nproc_per_node 1`` (NCCL), exit 0 and each record written once.
 
 The line before the last holds the card's name and power limit
 (nvidia-smi), the one before it the kernels' JSON record (each kernel's
@@ -143,7 +161,9 @@ wide sweep pair's rows at the ``merton --nbNeuron 64`` path's shapes, the
 wide rollout pair's at the hidden-64 speed path's, every width and node
 set under ``by_width``, with the tensor-core floor of the wide pairs
 beside their FP32 bound; the bench cells' lines under ``bench``, the
-unfused speed cell's and the VG speed step's times under ``f1``); the last
+unfused speed cell's and the VG speed step's times under ``f1``, the
+data-parallel phases' under ``dp``, whose launches are in each kernel's
+``launches_by_path`` as ``dp_a``..``dp_dryrun``, summed over ranks); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -1475,6 +1495,509 @@ def bench_phases(counters) -> dict:
     return out
 
 
+# The data-parallel phases (``dp_phases``): ranks spawned on this card,
+# each reporting back its launches, losses, errors and parameter digests.
+# (a) NCCL, a world of one; (b) gloo, 2 data ranks; (c) gloo, a 2 × 2
+# (data, comp) mesh; a rank still running after DP_TIMEOUT seconds fails
+# the phase.  DP_STEPS training updates in (b) and (c), the first untimed.
+DP_TIMEOUT, DP_STEPS = 300.0, 4
+# (c)'s float64 run of the sharded and the unsharded loss through the plain
+# sweep: every gradient leaf held (as ``dp_errors`` holds them) within this
+# of the other (3.1e-11 on the CPU at 4096 paths a rank).  In f32 the Γ
+# head's leaves, differences of the realized Γ and its compensator that
+# cancel to ~1e-3 of the gradient's norm, sit 2e-5 to 2e-3 from float64 in
+# either run (CPU, 1024 and 4096 paths a rank), so the f32 runs do not
+# agree on them to GRAD_REL_TOL: those leaves are held per leaf here, in
+# float64, and in f32 as part of the global norm; their f32 distances are
+# printed.
+DP_F64_TOL = 1e-9
+
+
+class ShardMean:
+    """``loss(params, generator)``: the mean over ``n`` data shards of
+    ``loss_fn`` at ``fold_in(generator, i)``, in one process; the shards'
+    generators persist while ``generator`` does, as each data rank's does
+    under a mesh."""
+
+    def __init__(self, loss_fn, n: int):
+        self.loss_fn, self.n, self.gen, self.shards = loss_fn, n, None, []
+
+    def __call__(self, params, generator):
+        from deepfbsdejsolvers_torch.solvers.train import fold_in
+
+        if generator is not self.gen:
+            self.gen = generator
+            self.shards = [fold_in(generator, i) for i in range(self.n)]
+        return torch.mean(torch.stack([self.loss_fn(params, g)
+                                       for g in self.shards]))
+
+
+def dp_counters() -> dict:
+    from deepfbsdejsolvers_torch.ops import rollout as R
+    from deepfbsdejsolvers_torch.ops import sweep as S
+
+    return {"B1": R.b1_forward, "B2": R.b2_backward,
+            "B3": S.b3_forward, "B4": S.b4_backward,
+            "B3w": S.b3_wide_forward, "B4w": S.b4_wide_backward,
+            "B1w": R.b1_wide_forward, "B2w": R.b2_wide_backward}
+
+
+def dp_reset() -> dict:
+    counters = dp_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def dp_read() -> dict:
+    return {k: fn.launches for k, fn in dp_counters().items()}
+
+
+def dp_digest(params) -> str:
+    import hashlib
+
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+
+    h = hashlib.sha256()
+    for t in param_leaves(params):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_fresh(params, dtype=None):
+    """A copy of a params tree with trainable leaves (cast to ``dtype``
+    when given)."""
+    if isinstance(params, dict):
+        return {k: dp_fresh(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [dp_fresh(v, dtype) for v in params]
+    return params.detach().to(dtype).clone().requires_grad_(True)
+
+
+def dp_errors(got, want) -> dict:
+    """The global-norm relative distance of the gradient leaves ``got``
+    from ``want``, the worst per-leaf one over the leaves that carry at
+    least GRAD_REL_TOL of the gradient's norm (the others' distances are
+    bounded by the global one; the Γ head's output bias has an exact
+    gradient of 0, 1 − Σw over a normalised node set), and the largest
+    absolute.  Leaves are numbered in ``param_leaves`` order."""
+    num = math.sqrt(sum(float(torch.sum((a - b) ** 2))
+                        for a, b in zip(got, want)))
+    den = math.sqrt(sum(float(torch.sum(b ** 2)) for b in want))
+    leaves = {i: float((a - b).norm()) / float(b.norm())
+              for i, (a, b) in enumerate(zip(got, want))
+              if float(b.norm()) >= GRAD_REL_TOL * den}
+    worst = max(leaves, key=leaves.get)
+    return {"rel": num / den, "leaf_rel": leaves[worst], "worst_leaf": worst,
+            "per_leaf": leaves, "leaves_held": len(leaves),
+            "leaves": len(want),
+            "max_abs": max(float((a - b).abs().max())
+                           for a, b in zip(got, want))}
+
+
+def dp_value_and_grad(loss_fn, params, gen, mesh):
+    """This rank's loss and gradients (``local``) and their mesh means."""
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+    from deepfbsdejsolvers_torch.parallel.data_parallel import (
+        all_reduce_grads)
+
+    p = dp_fresh(params)
+    loss = loss_fn(p, gen)
+    loss.backward()
+    leaves = param_leaves(p)
+    local = [t.grad.clone() for t in leaves]
+    mean = all_reduce_grads(leaves, loss, mesh)
+    return {"loss": float(loss.detach()), "mesh_loss": float(mean),
+            "local": local,
+            "grads": [t.grad.clone() for t in leaves]}
+
+
+def dp_train(update, gen, params) -> dict:
+    """DP_STEPS updates: each one's mesh loss and the params' digest after
+    it, and the host milliseconds of the timed ones (all but the first),
+    each ending in a sync on the loss."""
+    losses, digests, ms = [], [], []
+    for k in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(update(gen)))
+        if k:
+            ms.append(1e3 * (time.perf_counter() - t0))
+        digests.append(dp_digest(params))
+    return {"losses": losses, "digests": digests,
+            "step_ms": float(np.mean(ms))}
+
+
+def dp_rank_a(rank: int) -> dict:
+    """(a): the fused speed configuration in a world of one (NCCL), 2 × 2
+    steps through ``fit(mesh=...)``, against ``fit`` without a mesh of the
+    same shard's loss (``ShardMean(loss, 1)``): every loss, Y0 and param
+    bit for bit."""
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+    from deepfbsdejsolvers_torch.parallel import make_mesh
+    from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
+    from deepfbsdejsolvers_torch.solvers.train import fit, make_generator
+
+    mesh = make_mesh(device="cuda")
+    model, kw = speed_config()
+    solver = PricingSolver(model, "global", hidden=(HIDDEN, HIDDEN), **kw)
+    loss, val = solver.build_loss(TRAIN_BATCH), solver.build_loss(TRAIN_BATCH)
+
+    def run(m, lf, vf):
+        params = solver.init_params(make_generator("cpu", SEED, 0))
+        dp_reset()
+        res = fit(lf, params, SEED, 4e-4, 2, 2, val_loss_fn=vf,
+                  y0_fn=solver.y0_estimate, verbose=False, mesh=m)
+        return res, dp_read()
+
+    dp, launches = run(mesh, loss, val)
+    one, _ = run(None, ShardMean(loss, 1), ShardMean(val, 1))
+    same = (dp.loss_history == one.loss_history
+            and dp.y0_history == one.y0_history
+            and all(torch.equal(a, b) for a, b in
+                    zip(param_leaves(dp.params), param_leaves(one.params))))
+    return {"backend": mesh.backend, "launches": launches,
+            "losses": dp.loss_history, "y0": dp.y0_history,
+            "single_losses": one.loss_history, "bit_identical": same,
+            "digest": dp_digest(dp.params)}
+
+
+def dp_rank_b(rank: int) -> dict:
+    """(b): the fused speed configuration on 2 data ranks (gloo), each on
+    2^16 paths: the mesh loss and gradients against the mean of both
+    shards' evaluated serially here, then DP_STEPS updates."""
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+    from deepfbsdejsolvers_torch.parallel import (
+        make_dp_update, make_mesh, per_shard_batch)
+    from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
+    from deepfbsdejsolvers_torch.solvers.train import (
+        fold_in, make_adam, make_generator)
+
+    mesh = make_mesh(device="cuda")
+    d, n = mesh.coord("data"), mesh.shape["data"]
+    model, kw = speed_config()
+    solver = PricingSolver(model, "global", hidden=(HIDDEN, HIDDEN), **kw)
+    batch = per_shard_batch(TRAIN_BATCH, mesh)
+    loss_fn = solver.build_loss(batch)
+    params = solver.init_params(make_generator("cpu", SEED, 0))
+    g = make_generator("cuda", SEED, 11)
+    dp_reset()
+    got = dp_value_and_grad(loss_fn, params, fold_in(g, d), mesh)
+    p = dp_fresh(params)
+    serial = torch.mean(torch.stack([loss_fn(p, fold_in(g, i))
+                                     for i in range(n)]))
+    serial.backward()
+    serial = float(serial.detach())
+    check_launches = dp_read()
+    want = [t.grad for t in param_leaves(p)]
+    params = dp_fresh(params)
+    update = make_dp_update(loss_fn, make_adam(params, 4e-4), params, mesh)
+    dp_reset()
+    train = dp_train(update, fold_in(make_generator("cuda", SEED, 12), d),
+                     params)
+    return {"backend": mesh.backend, "batch": batch,
+            "mesh_loss": got["mesh_loss"], "serial_loss": serial,
+            "loss_rel": abs(got["mesh_loss"] - serial) / abs(serial),
+            "grads": dp_errors(got["grads"], want),
+            "check_launches": check_launches, "launches": dp_read(),
+            **train}
+
+
+def dp_rank_c(rank: int) -> dict:
+    """(c): the parity configuration on a 2 × 2 (data, comp) mesh (gloo),
+    2^16 paths a data rank, the 49-node quadrature padded to 50 and swept
+    25 nodes a rank through B3/B4: loss and gradients against the same
+    world unsharded at the same noise, the sharded run twice (B4 bit for
+    bit), then DP_STEPS updates.  Both runs' gradients are also measured
+    against a float64 evaluation of the unsharded loss (the plain sweep)
+    at the same noise (``f64``: per leaf, the sharded and the unsharded
+    run's relative distances from it)."""
+    import deepfbsdejsolvers_torch.solvers.pricing as P
+    from deepfbsdejsolvers_torch.models.merton import make_merton_default
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+    from deepfbsdejsolvers_torch.parallel import (
+        make_dp_update, make_mesh, per_shard_batch)
+    from deepfbsdejsolvers_torch.solvers.train import (
+        fold_in, make_adam, make_generator)
+
+    mesh = make_mesh((2, 2), ("data", "comp"), device="cuda")
+    d = mesh.coord("data")
+    kw = dict(hidden=(HIDDEN, HIDDEN), sweep_impl="pallas", device="cuda")
+    base = P.PricingSolver(make_merton_default(), "global", **kw)
+    shard = P.PricingSolver(make_merton_default(), "global", comp_axis="comp",
+                            comp_shards=2, **kw)
+    batch = per_shard_batch(TRAIN_BATCH, mesh)
+    params = base.init_params(make_generator("cpu", SEED, 0))
+    # the node count of each sweep the kernels are handed
+    swept = []
+    sweep = P.fused_sweep
+    P.fused_sweep = lambda x, a, *r: (swept.append(int(a.shape[0])),
+                                      sweep(x, a, *r))[1]
+    g = make_generator("cuda", SEED, 13)
+    out = {"backend": mesh.backend, "batch": batch}
+    try:
+        dp_reset()
+        first = dp_value_and_grad(shard.build_loss(batch, mesh), params,
+                                  fold_in(g, d), mesh)
+        again = dp_value_and_grad(shard.build_loss(batch, mesh), params,
+                                  fold_in(g, d), mesh)
+        out["check_launches"] = dp_read()
+        out["nodes_sharded"] = sorted(set(swept))
+        swept.clear()
+        ref = dp_value_and_grad(base.build_loss(batch), params,
+                                fold_in(g, d), mesh)
+        out["nodes_unsharded"] = sorted(set(swept))
+        # the same comparison in float64 through the plain sweep: the
+        # sharding's own error, free of f32 rounding
+        m64 = float64_model(make_merton_default())
+        kw64 = dict(hidden=(HIDDEN, HIDDEN), device="cuda")
+        noise = tuple(t.double() for t in base._prenoise(fold_in(g, d),
+                                                         batch))
+        exact = {who: dp_value_and_grad(
+            s.build_loss_from_noise(batch, mesh),
+            dp_fresh(params, torch.float64),
+            noise, mesh)["grads"] for who, s in (
+                ("unsharded", P.PricingSolver(m64, "global", **kw64)),
+                ("sharded", P.PricingSolver(m64, "global", comp_axis="comp",
+                                            comp_shards=2,
+                                            **kw64)))}
+        def dist(got, want):
+            """Per leaf, as dp_errors holds them."""
+            whole = math.sqrt(sum(float(b.norm()) ** 2 for b in want))
+            return {i: float((a.double() - b).norm() / b.norm())
+                    for i, (a, b) in enumerate(zip(got, want))
+                    if float(b.norm()) >= GRAD_REL_TOL * whole}
+
+        out["f64"] = {who: dist(run["grads"], exact["unsharded"])
+                      for who, run in (("sharded", first), ("unsharded", ref))}
+        out["f64_sharding"] = max(dist(exact["sharded"],
+                                       exact["unsharded"]).values())
+        out["heads"] = [name for name in sorted(params)
+                        for _ in param_leaves(params[name])]
+
+        out["rerun_identical"] = (first["loss"] == again["loss"] and all(
+            torch.equal(a, b) for a, b in zip(first["local"],
+                                              again["local"])))
+        out["mesh_loss"], out["unsharded_loss"] = (first["mesh_loss"],
+                                                   ref["mesh_loss"])
+        out["loss_rel"] = (abs(first["mesh_loss"] - ref["mesh_loss"])
+                           / abs(ref["mesh_loss"]))
+        out["grads"] = dp_errors(first["grads"], ref["grads"])
+        params = dp_fresh(params)
+        update = make_dp_update(shard.build_loss(batch, mesh),
+                                make_adam(params, 4e-4), params, mesh)
+        dp_reset()
+        out.update(dp_train(update, fold_in(make_generator("cuda", SEED, 14),
+                                            d), params))
+        out["launches"] = dp_read()
+    finally:
+        P.fused_sweep = sweep
+    return out
+
+
+def dp_single_step_ms(solver) -> float:
+    """The host milliseconds of a training step of ``solver`` in this
+    process at batch TRAIN_BATCH, timed as ``dp_train`` times the ranks'."""
+    from deepfbsdejsolvers_torch.solvers.train import (
+        make_adam, make_generator, make_step)
+
+    params = solver.init_params(make_generator("cpu", SEED, 0))
+    step = make_step(solver.build_loss(TRAIN_BATCH), make_adam(params, 4e-4),
+                     params)
+    return dp_train(step, make_generator("cuda", SEED, 15), params)["step_ms"]
+
+
+def dp_phases(counters) -> dict:
+    """Phase 9: data parallelism on this card.  The kernels are built (phase
+    1); the ranks start by ``spawn`` and share the card, so the step times
+    show the cost of the collectives and launches, not a scaling.  Fails
+    unless: (a) is bit-identical to the run without a mesh and launches B1
+    6 and B2 4 times; in (b) every rank's mesh loss is within LOSS_REL_TOL
+    and its gradients within GRAD_REL_TOL (as a whole and per leaf) of the
+    serial ones, the params bit-identical across ranks after every step,
+    and B1/B2 launched once per shard loss and backward; in (c) B3/B4 sweep
+    25 nodes a rank (49 unsharded), loss and gradients within the same
+    tolerances of the unsharded run (per leaf but the Γ head's, as
+    DP_F64_TOL's comment says) and, in float64 through the plain sweep,
+    every leaf within DP_F64_TOL of the unsharded run, B4 bit-identical on
+    rerun, B3 and B4 N_STEPS times per loss and backward; (d) the dry run at 4 ranks passes;
+    (e) ``merton --dataParallel --methods Global`` under
+    ``torch.distributed.run --nproc_per_node 1`` exits 0 and writes each
+    record once."""
+    from deepfbsdejsolvers_torch.experiments import dryrun_multichip
+    from deepfbsdejsolvers_torch.models.merton import make_merton_default
+    from deepfbsdejsolvers_torch.parallel.launch import run_ranks
+    from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
+
+    zero = {k: 0 for k in counters}
+    out, by_path = {}, {}
+    t0 = time.perf_counter()
+
+    def ranks(label, fn, k):
+        print(f"dp ({label}): {k} rank(s) of {fn.__name__}:")
+        t = time.perf_counter()
+        try:
+            res = run_ranks(fn, k, device="cuda", timeout=DP_TIMEOUT)
+        except RuntimeError as e:
+            fail(f"dp ({label}): {e}")
+        print(f"dp ({label}): {time.perf_counter() - t:.1f} s")
+        return res
+
+    def want(label, got, **counts):
+        exp = dict(zero, **counts)
+        if got != exp:
+            fail(f"dp ({label}): launches {got}, the code implies {exp}")
+
+    (a,) = ranks("a", dp_rank_a, 1)
+    print(f"dp (a): backend {a['backend']}, losses {a['losses']} (without "
+          f"a mesh {a['single_losses']}), bit-identical "
+          f"{a['bit_identical']}, launches {a['launches']}")
+    if a["backend"] != "nccl" or not a["bit_identical"]:
+        fail("dp (a): the NCCL world of one is not bit-identical to the "
+             "run without a mesh")
+    want("a", a["launches"], B1=2 * 2 + 2, B2=2 * 2)
+    by_path["dp_a"] = a["launches"]
+    out["a"] = {k: a[k] for k in ("backend", "losses", "y0", "launches")}
+
+    b = ranks("b", dp_rank_b, 2)
+    for r, res in enumerate(b):
+        print(f"dp (b) rank {r}: backend {res['backend']}, {res['batch']} "
+              f"paths, mesh loss {res['mesh_loss']:.7g} (serial "
+              f"{res['serial_loss']:.7g}, rel {res['loss_rel']:.2e}), grads "
+              f"rel {res['grads']['rel']:.2e} (worst leaf "
+              f"{res['grads']['leaf_rel']:.2e}, leaf {res['grads']['worst_leaf']} of "
+              f"{res['grads']['leaves_held']} held), step "
+              f"{res['step_ms']:.2f} ms, launches {res['launches']}")
+        if res["loss_rel"] > LOSS_REL_TOL:
+            fail(f"dp (b) rank {r}: mesh loss off the serial mean")
+        if max(res["grads"]["rel"], res["grads"]["leaf_rel"]) > GRAD_REL_TOL:
+            fail(f"dp (b) rank {r}: gradients off the serial ones")
+        want(f"b, rank {r}, checks", res["check_launches"], B1=1 + 2,
+             B2=1 + 2)
+        want(f"b, rank {r}", res["launches"], B1=DP_STEPS, B2=DP_STEPS)
+    if b[0]["digests"] != b[1]["digests"] or b[0]["losses"] != b[1]["losses"]:
+        fail("dp (b): the ranks' params or losses differ after a step")
+    by_path["dp_b"] = {k: sum(r["launches"][k] for r in b) for k in zero}
+
+    c = ranks("c", dp_rank_c, 4)
+    for r, res in enumerate(c):
+        print(f"dp (c) rank {r}: backend {res['backend']}, {res['batch']} "
+              f"paths a data rank, nodes a sweep {res['nodes_sharded']} "
+              f"(unsharded {res['nodes_unsharded']}), mesh loss "
+              f"{res['mesh_loss']:.7g} (unsharded "
+              f"{res['unsharded_loss']:.7g}, rel {res['loss_rel']:.2e}), "
+              f"grads rel {res['grads']['rel']:.2e} (worst leaf "
+              f"{res['grads']['leaf_rel']:.2e}, leaf {res['grads']['worst_leaf']} of "
+              f"{res['grads']['leaves_held']} held), B4 rerun identical "
+              f"{res['rerun_identical']}, step {res['step_ms']:.2f} ms, "
+              f"launches {res['launches']}")
+        if res["nodes_sharded"] != [25] or res["nodes_unsharded"] != [N_QUAD]:
+            fail(f"dp (c) rank {r}: the kernels swept "
+                 f"{res['nodes_sharded']} nodes, not 25")
+        if res["loss_rel"] > LOSS_REL_TOL:
+            fail(f"dp (c) rank {r}: loss off the unsharded run")
+        # per leaf within GRAD_REL_TOL of the unsharded run, but the Γ
+        # head's, which DP_F64_TOL holds (its comment)
+        f64, heads = res["f64"], res["heads"]
+        off = {i: e for i, e in res["grads"]["per_leaf"].items()
+               if heads[i] != "gam" and e > GRAD_REL_TOL}
+        if r == 0:
+            print(f"dp (c): per leaf (head), distance from the "
+                  "unsharded run; the sharded and the unsharded run's from "
+                  "float64: " + ", ".join(
+                      f"{i} ({heads[i]}): {e:.2e}; {f64['sharded'][i]:.2e}, "
+                      f"{f64['unsharded'][i]:.2e}"
+                      for i, e in res["grads"]["per_leaf"].items())
+                  + f"; in float64 sharded against unsharded "
+                  f"{res['f64_sharding']:.2e}")
+        if res["grads"]["rel"] > GRAD_REL_TOL or off:
+            fail(f"dp (c) rank {r}: gradients off the unsharded run "
+                 f"(global {res['grads']['rel']:.2e}; leaves {off})")
+        if res["f64_sharding"] > DP_F64_TOL:
+            fail(f"dp (c) rank {r}: in float64 the sharded gradients are "
+                 f"{res['f64_sharding']:.2e} from the unsharded ones")
+        if not res["rerun_identical"]:
+            fail(f"dp (c) rank {r}: B4 not bit-identical on rerun")
+        want(f"c, rank {r}, checks", res["check_launches"],
+             B3=2 * N_STEPS, B4=2 * N_STEPS)
+        want(f"c, rank {r}", res["launches"], B3=DP_STEPS * N_STEPS,
+             B4=DP_STEPS * N_STEPS)
+    if len({tuple(r["digests"]) for r in c}) != 1:
+        fail("dp (c): the ranks' params differ after a step")
+    by_path["dp_c"] = {k: sum(r["launches"][k] for r in c) for k in zero}
+    model, kw = speed_config()
+    single_ms = {
+        "speed": dp_single_step_ms(PricingSolver(
+            model, "global", hidden=(HIDDEN, HIDDEN), **kw)),
+        "parity": dp_single_step_ms(PricingSolver(
+            make_merton_default(), "global", hidden=(HIDDEN, HIDDEN),
+            sweep_impl="pallas", device="cuda"))}
+    for label, res, key in (("b", b, "speed"), ("c", c, "parity")):
+        ms = [r["step_ms"] for r in res]
+        out[label] = {"ranks": len(res), "batch_per_rank": res[0]["batch"],
+                      "step_ms_by_rank": ms, "single_step_ms": single_ms[key],
+                      "loss_rel": max(r["loss_rel"] for r in res),
+                      "grad_rel": max(r["grads"]["rel"] for r in res),
+                      "grad_leaf_rel": max(r["grads"]["leaf_rel"]
+                                           for r in res),
+                      "launches_by_rank": [r["launches"] for r in res]}
+        print(f"dp ({label}) on one shared card: step {max(ms):.2f} ms at "
+              f"global batch {TRAIN_BATCH} over {len(res)} ranks, against "
+              f"{single_ms[key]:.2f} ms in one process")
+
+    # (e) runs beside (d): neither is timed, and the card holds both
+    print("dp (d) and (e): the dry run at 4 ranks, beside merton "
+          "--dataParallel under torch.distributed.run:")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "deepfbsdejsolvers_torch",
+             "merton", "--dataParallel", "--methods", "Global",
+             "--nEpochExt", str(CLI_EPOCHS), "--nEpoch", str(CLI_STEPS),
+             "--outdir", tmp, "--quiet"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            dry = dryrun_multichip.run(4, "cuda", timeout=DP_TIMEOUT)
+            print(f"dp (d): {time.perf_counter() - t:.1f} s")
+            stdout, stderr = cli.communicate(timeout=DP_TIMEOUT)
+        except (RuntimeError, subprocess.TimeoutExpired) as e:
+            fail(f"dp (d) or (e): {e}")
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.communicate()
+        print(stdout[-2000:])
+        if cli.returncode != 0:
+            fail(f"dp (e): exit {cli.returncode}:\n{stderr[-4000:]}")
+        with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+            records = [json.loads(line) for line in fh]
+    for r, passes in enumerate(dry["launches"]):
+        want(f"d, rank {r}, merton", dict(zero, **passes["merton"]),
+             B3=N_STEPS, B4=N_STEPS)
+        want(f"d, rank {r}, speed_fused", dict(zero, **passes["speed_fused"]),
+             B1=1, B2=1)
+        for name in ("speed", "vg_speed", "mfg"):
+            want(f"d, rank {r}, {name}", dict(zero, **passes[name]))
+    by_path["dp_dryrun"] = {k: sum(p.get(k, 0) for r in dry["launches"]
+                                   for p in r.values()) for k in zero}
+    out["d"] = {name: res["loss"] for name, res in dry["passes"].items()}
+    events = [r.get("event") for r in records]
+    epochs = sorted(r["epoch"] for r in records if "epoch" in r)
+    print(f"dp (e): {time.perf_counter() - t:.1f} s, exit 0, events "
+          f"{events}, epochs {epochs}")
+    if ("backend nccl" not in stdout or events.count("start") != 1
+            or events.count("method_done") != 1
+            or epochs != list(range(CLI_EPOCHS))):
+        fail("dp (e): the records are not written once each, or the rank "
+             "did not join NCCL")
+    out["e"] = {"events": events, "epochs": epochs}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dp phases: {out['seconds']:.1f} s")
+    return out, by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1784,6 +2307,10 @@ def main() -> int:
         fail(f"gate {GATE} launched {by_path[GATE]}, the code implies "
              f"{want}")
 
+    # 9. data parallelism: ranks sharing this card
+    dp, dp_paths = dp_phases(counters)
+    by_path.update(dp_paths)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1940,7 +2467,8 @@ def main() -> int:
                       "wide_train_step_ms": wide_step_ms,
                       "wide_parity_train_step_ms": wide_parity_ms,
                       "f1": f1, "mfg": mfg,
-                      "cli": cli_out, "bench": bench, "gate": gate}))
+                      "cli": cli_out, "bench": bench, "gate": gate,
+                      "dp": dp}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,15 +13,22 @@ bench         the training-throughput benchmark (the JAX package's
               bench.py), in this process (experiments/bench.py)
 
 One flag more, ``--device`` (``cuda`` by default; ``cpu`` runs on the CPU):
-without a card and without ``--device cpu`` the CLI exits with status 2.
-``--dataParallel`` is parsed and refused (ROADMAP Queue 1, item 12), and so
-are the bench options the port has not (``experiments/bench.py``).
+without a card and without ``--device cpu`` the CLI exits with status 2,
+and so do the bench options the port has not (``experiments/bench.py``).
+
+``--dataParallel`` shards the path batch over the ranks of the launcher's
+world: ``python -m torch.distributed.run --nproc_per_node K -m
+deepfbsdejsolvers_torch merton --dataParallel ...`` runs K ranks (NCCL with
+a card each, gloo where they share one; ``parallel/data_parallel.py``), and
+rank 0 alone writes under ``--outdir`` and prints the summary.  Without the
+launcher it runs a world of one.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -84,8 +91,9 @@ def _add_pricing_flags(p: argparse.ArgumentParser, lr_y0, lr_loc, lr_reg,
                         "card for un-hoisted runs, xla under --fast and on "
                         "the CPU")
     p.add_argument("--dataParallel", action="store_true",
-                   help="shard the path batch over all visible cards (not "
-                        "ported yet: refused)")
+                   help="shard the path batch over the ranks of the "
+                        "launcher's world (torch.distributed.run; a world "
+                        "of one without it)")
     p.add_argument("--y0TailAvg", type=int, default=1,
                    help="report Y0 as the mean over the last k outer epochs "
                         "(1 = reference behavior)")
@@ -157,8 +165,9 @@ def _add_mfg_flags(p: argparse.ArgumentParser, defaults):
     p.add_argument("--activation", type=str, default="tanh",
                    choices=["tanh", "relu", "sigmoid"])
     p.add_argument("--dataParallel", action="store_true",
-                   help="shard the path batch over all visible cards (not "
-                        "ported yet: refused)")
+                   help="shard the path batch over the ranks of the "
+                        "launcher's world (torch.distributed.run; a world "
+                        "of one without it)")
     p.add_argument("--y0WarmStart", action="store_true",
                    help="initialize the Global scheme's trainable (Y0_hat, "
                         "Y0) at Picard-iterated MC estimates of the BSDE "
@@ -256,10 +265,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if getattr(args, "dataParallel", False):
-        print("deepfbsdejsolvers_torch: --dataParallel is not ported yet "
-              "(ROADMAP Queue 1, item 12)", file=sys.stderr)
-        return 2
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         print("deepfbsdejsolvers_torch: no CUDA device; pass --device cpu "
@@ -293,6 +298,10 @@ def _bench(args) -> int:
 def _dispatch(args, verbose: bool) -> int:
     if args.cmd == "bench":
         return _bench(args)
+    # a launcher's ranks other than 0 print nothing
+    show = os.environ.get("RANK", "0") == "0"
+    verbose = verbose and show
+    say = print if show else (lambda *a: None)
     if args.cmd in ("merton", "vg"):
         from deepfbsdejsolvers_torch.experiments.pricing import run_pricing
 
@@ -304,9 +313,9 @@ def _dispatch(args, verbose: bool) -> int:
             label = "FFT reference price"
         res = run_pricing(cfg, verbose=verbose, device=args.device)
         for m, r in res.methods.items():
-            print(f"{m}: Y0={r.y0:.6f}  |err|={r.abs_error:.2e}  "
+            say(f"{m}: Y0={r.y0:.6f}  |err|={r.abs_error:.2e}  "
                   f"({r.duration:.1f}s, sweep {r.sweep_impl})")
-        print(f"{label}: {res.reference_price:.6f}")
+        say(f"{label}: {res.reference_price:.6f}")
     elif args.cmd == "mfg-compare":
         from deepfbsdejsolvers_torch.experiments.mfg_comparison import (
             run_mfg_comparison)
@@ -318,7 +327,7 @@ def _dispatch(args, verbose: bool) -> int:
         for m, r in res.methods.items():
             cost = ("" if r.eval_cost is None
                     else f"  cost={r.eval_cost:.4f}±{r.eval_ci:.4f}")
-            print(f"{m}: Y0_hat={r.y0_hat_history[-1]:.6f}  "
+            say(f"{m}: Y0_hat={r.y0_hat_history[-1]:.6f}  "
                   f"Y0={r.y0_history[-1]:.6f}{cost}")
     else:
         from deepfbsdejsolvers_torch.experiments.mfg_poa import (
@@ -328,9 +337,9 @@ def _dispatch(args, verbose: bool) -> int:
                            n_replay=args.nReplay, pi_list=args.piList,
                            **_mfg_common(args))
         res = run_mfg_poa(cfg, verbose=verbose, device=args.device)
-        print("  ".join(TABLE_COLUMNS))
+        say("  ".join(TABLE_COLUMNS))
         for row in res.table():
-            print("  ".join(str(row[c]) for c in TABLE_COLUMNS))
+            say("  ".join(str(row[c]) for c in TABLE_COLUMNS))
     return 0
 
 

@@ -10,9 +10,11 @@
 * MFG PoA: mainMFGPoA.py:18-36 (nEpoch=300, batchSize=64, jumpFac=12,
   nbDays=1, lRateY0=1e-2, lRateLoc=1e-3, lRateReg=5e-3).
 
-Data parallelism is not ported yet (ROADMAP Queue 1, item 12):
-``data_parallel=True`` raises NotImplementedError; so does a
-``compute_dtype`` other than None (item 13), as ``PricingSolver`` does.
+``data_parallel=True`` shards each method's path batch over the ranks of
+the launcher's world (``python -m torch.distributed.run``; a world of one
+without a launcher; ``parallel/data_parallel.py``), rank 0 alone writing
+under ``io.outdir``.  A ``compute_dtype`` other than None raises
+NotImplementedError (ROADMAP item 13), as ``PricingSolver`` does.
 """
 
 from __future__ import annotations
@@ -44,9 +46,6 @@ MFG_METHOD_TO_SCHEME = {
     "SumLocalReg": "sumlocal_reg",
     "SumMultiStepReg": "multistep_reg",
 }
-
-_ITEM_12 = "is not ported yet (ROADMAP Queue 1, item 12)"
-
 
 @dataclasses.dataclass
 class RunIO:
@@ -111,7 +110,9 @@ class PricingConfigBase:
     # nominal batch inside the solver (SolversJumpDiff.py:435,503), kept as
     # an explicit knob instead of a hidden multiplier.
     reg_batch_multiplier: int = 1000
-    data_parallel: bool = False       # not ported: must stay False
+    # Shard the path batch over the ranks of the launcher's world (a data
+    # mesh; each rank takes its per_shard_batch of the batches)
+    data_parallel: bool = False
     # Report Y0 as the mean of the last k outer-epoch read-outs (1 = the
     # reference's last one).
     y0_tail_avg: int = 1
@@ -122,8 +123,6 @@ class PricingConfigBase:
     io: RunIO = dataclasses.field(default_factory=RunIO)
 
     def __post_init__(self):
-        if self.data_parallel:
-            raise NotImplementedError(f"data_parallel {_ITEM_12}")
         if self.compute_dtype is not None:
             raise NotImplementedError(
                 f"compute_dtype {self.compute_dtype!r} is not ported yet "
@@ -181,17 +180,15 @@ class MFGConfigBase:
     # "icdf" inverts the per-path Cox CDF instead of torch.poisson
     jump_sampler: str = "exact"
     scan_chunk: int = 0               # accepted, ignored: no scan to chunk
-    data_parallel: bool = False       # not ported: must stay False
+    # Shard the path batch over the ranks of the launcher's world (a data
+    # mesh; each rank takes its per_shard_batch of the batches)
+    data_parallel: bool = False
     # Start the global scheme's (Y0_hat, Y0) at the Picard Monte-Carlo
     # estimate (MFGSolver.warm_start_y0) instead of unit-normal draws; off
     # by default, as in the reference.
     y0_warm_start: bool = False
     seed: int = 0
     io: RunIO = dataclasses.field(default_factory=RunIO)
-
-    def __post_init__(self):
-        if self.data_parallel:
-            raise NotImplementedError(f"data_parallel {_ITEM_12}")
 
     @property
     def hidden_hat(self) -> Tuple[int, ...]:

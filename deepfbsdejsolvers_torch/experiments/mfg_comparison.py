@@ -8,7 +8,11 @@ histories as ``hY0List.csv`` / ``Y0List.csv`` (the files the reference's
 plotting stage reloads, mainMFGComparison.py:146-147, and nothing wrote),
 with ``io.save_plots`` the convergence figure (matplotlib, imported
 only then), and with ``io.profile_dir`` a ``torch.profiler`` trace of the
-training.  Runs on the card unless ``device="cpu"`` is asked for.
+training.  Runs on the card unless ``device="cpu"`` is asked for.  With
+``config.data_parallel`` each method trains data-parallel over the ranks of
+the launcher's world (``parallel/data_parallel.py``), each rank on its
+``per_shard_batch`` of the batches; rank 0 alone writes under
+``io.outdir``, and the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 from deepfbsdejsolvers_torch.experiments.configs import (
     MFG_METHOD_TO_SCHEME, MFGComparisonConfig)
 from deepfbsdejsolvers_torch.models.mfg_smart_grid import make_mfg_default
+from deepfbsdejsolvers_torch.parallel.data_parallel import optional_mesh
 from deepfbsdejsolvers_torch.solvers.mfg import MFGSolver
 from deepfbsdejsolvers_torch.solvers.train import make_generator
 from deepfbsdejsolvers_torch.utils.logging import MetricsLogger
@@ -60,18 +65,29 @@ def build_mfg_model(config: MFGComparisonConfig):
 
 def run_mfg_comparison(config: MFGComparisonConfig, verbose: bool = True,
                        device: str = "cuda") -> MFGComparisonResult:
+    with optional_mesh(config.data_parallel, device) as mesh:
+        return _run_mfg_comparison(config, verbose, device, mesh)
+
+
+def _run_mfg_comparison(config: MFGComparisonConfig, verbose: bool,
+                        device: str, mesh) -> MFGComparisonResult:
     model = build_mfg_model(config)
     io = config.io
-    io.warn_no_checkpoint("mfg-compare")
+    main = mesh is None or mesh.rank == 0
+    verbose = verbose and main
+    if main:
+        io.warn_no_checkpoint("mfg-compare")
     logger = None
     if io.outdir and io.metrics_jsonl:
-        os.makedirs(io.outdir, exist_ok=True)
+        if main:
+            os.makedirs(io.outdir, exist_ok=True)
         logger = MetricsLogger(os.path.join(io.outdir, "metrics.jsonl"),
-                               tags={"experiment": "mfg_comparison"})
+                               tags={"experiment": "mfg_comparison"},
+                               mesh=mesh)
 
     results: Dict[str, MFGMethodResult] = {}
     solvers: Dict[str, MFGSolver] = {}
-    with trace_profile(io.profile_dir):
+    with trace_profile(io.profile_dir if main else None):
         for method in config.methods:
             if verbose:
                 print(f"==== MFG method {method} (couplage {config.couplage}) "
@@ -92,7 +108,7 @@ def run_mfg_comparison(config: MFGComparisonConfig, verbose: bool = True,
                 verbose=verbose,
                 on_epoch=(lambda i, m, s: mlog.log(epoch=i, **m)) if mlog
                 else None,
-                y0_warm_start=config.y0_warm_start)
+                mesh=mesh, y0_warm_start=config.y0_warm_start)
             results[method] = MFGMethodResult(
                 method=method, y0_hat_history=res.y0_hat_history,
                 y0_history=res.y0_history, loss_history=res.loss_history,
@@ -128,7 +144,7 @@ def run_mfg_comparison(config: MFGComparisonConfig, verbose: bool = True,
                 logger.log(event="frozen_eval", method=method, cost=cost,
                            ci=half_ci * std, n_sim=config.n_simulation)
 
-    if io.outdir:
+    if io.outdir and main:
         os.makedirs(io.outdir, exist_ok=True)
         hist_hat = np.array([results[m].y0_hat_history
                              for m in config.methods])
@@ -141,6 +157,8 @@ def run_mfg_comparison(config: MFGComparisonConfig, verbose: bool = True,
             _plot(config, results)
     if logger:
         logger.close()
+    if mesh is not None:
+        mesh.barrier()
     return MFGComparisonResult(methods=results, model=model)
 
 

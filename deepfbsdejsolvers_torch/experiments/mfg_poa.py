@@ -8,7 +8,11 @@ cost_MFC with 95% CIs (mainMFGPoA.py:189-337).  Artifacts under
 ``metrics.jsonl``, and with ``io.save_plots`` the multi-page PDF of
 consumption / deviation / price panels (matplotlib, imported only then);
 with ``io.profile_dir`` a ``torch.profiler`` trace of the training and
-replays.  Runs on the card unless ``device="cpu"`` is asked for.
+replays.  Runs on the card unless ``device="cpu"`` is asked for.  With
+``config.data_parallel`` every cell trains data-parallel over the ranks of
+the launcher's world (``parallel/data_parallel.py``), each rank on its
+``per_shard_batch`` of the batches, and every rank replays the policies;
+rank 0 alone writes under ``io.outdir``, the others waiting at a barrier.
 
 Seeds: the frozen noise from the generator of (seed, 0) on the device,
 each (case, π, model) cell's training from a seed derived from (seed, 1,
@@ -31,6 +35,7 @@ from deepfbsdejsolvers_torch.experiments.configs import (
     MFG_METHOD_TO_SCHEME, MFGPoAConfig)
 from deepfbsdejsolvers_torch.models.mfg_smart_grid import (
     SmartGridMFGModel, make_mfg_default)
+from deepfbsdejsolvers_torch.parallel.data_parallel import optional_mesh
 from deepfbsdejsolvers_torch.solvers.mfg import MFGSolver
 from deepfbsdejsolvers_torch.solvers.train import make_generator
 from deepfbsdejsolvers_torch.utils.logging import MetricsLogger
@@ -99,13 +104,23 @@ def _cell_seed(seed: int, cell_id: int) -> int:
 
 def run_mfg_poa(config: MFGPoAConfig, verbose: bool = True,
                 device: str = "cuda") -> PoARunResult:
+    with optional_mesh(config.data_parallel, device) as mesh:
+        return _run_mfg_poa(config, verbose, device, mesh)
+
+
+def _run_mfg_poa(config: MFGPoAConfig, verbose: bool, device: str,
+                 mesh) -> PoARunResult:
     io = config.io
-    io.warn_no_checkpoint("mfg-poa")
+    main = mesh is None or mesh.rank == 0
+    verbose = verbose and main
+    if main:
+        io.warn_no_checkpoint("mfg-poa")
     logger = None
     if io.outdir and io.metrics_jsonl:
-        os.makedirs(io.outdir, exist_ok=True)
+        if main:
+            os.makedirs(io.outdir, exist_ok=True)
         logger = MetricsLogger(os.path.join(io.outdir, "metrics.jsonl"),
-                               tags={"experiment": "mfg_poa"})
+                               tags={"experiment": "mfg_poa"}, mesh=mesh)
 
     # the frozen noise, drawn once from the zero-price model at π = 0.5
     # (mainMFGPoA.py:110-121)
@@ -117,7 +132,7 @@ def run_mfg_poa(config: MFGPoAConfig, verbose: bool = True,
 
     scheme = MFG_METHOD_TO_SCHEME[config.method]
     cells: List[PoACell] = []
-    with trace_profile(io.profile_dir):
+    with trace_profile(io.profile_dir if main else None):
         for i_case, (case, (p0, p1, f0, f1)) in enumerate(
                 config.cases.items()):
             for i_pi, pi in enumerate(config.pi_list):
@@ -137,7 +152,7 @@ def run_mfg_poa(config: MFGPoAConfig, verbose: bool = True,
                         num_epoch_ext=config.n_epoch_ext,
                         lrate=config.lrate_for(config.method),
                         couplage=config.couplage, verbose=verbose,
-                        y0_warm_start=config.y0_warm_start)
+                        mesh=mesh, y0_warm_start=config.y0_warm_start)
                     for player, dw in enumerate(dws):
                         evaluators[f"{tag}_p{player + 1}"] = (
                             MFGFixedTrajectoryEvaluator(
@@ -160,7 +175,7 @@ def run_mfg_poa(config: MFGPoAConfig, verbose: bool = True,
                           f"MFC {poa['mfc_cost']:.4f}±{poa['mfc_ci']:.4f})")
 
     result = PoARunResult(cells=cells)
-    if io.outdir:
+    if io.outdir and main:
         os.makedirs(io.outdir, exist_ok=True)
         result.to_csv(os.path.join(io.outdir, "poa_table.csv"))
         if io.save_plots:
@@ -169,6 +184,8 @@ def run_mfg_poa(config: MFGPoAConfig, verbose: bool = True,
             _plot_pdf(config, result, pretrain)
     if logger:
         logger.close()
+    if mesh is not None:
+        mesh.barrier()
     return result
 
 

@@ -16,6 +16,12 @@ which the pipeline prints and records as ``sweep_impl`` on every one of
 that method's ``metrics.jsonl`` records.  The JAX package's solver does
 the same with a warning; the port's ``PricingSolver`` itself refuses such
 a head.
+
+With ``config.data_parallel`` every method trains data-parallel over the
+ranks of the launcher's world (``parallel/data_parallel.py``), each rank
+rolling out its ``per_shard_batch`` of the training and validation
+batches; rank 0 alone writes under ``io.outdir`` (records, checkpoints,
+figure), and the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from deepfbsdejsolvers_torch.models.merton import (
 from deepfbsdejsolvers_torch.models.variance_gamma import VGModel
 from deepfbsdejsolvers_torch.nets.mlp import param_leaves
 from deepfbsdejsolvers_torch.ops.compensator import CompensatorSpec
+from deepfbsdejsolvers_torch.parallel.data_parallel import (
+    optional_mesh, per_shard_batch)
 from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
 from deepfbsdejsolvers_torch.solvers.train import fit, make_generator
 from deepfbsdejsolvers_torch.utils.checkpointing import CheckpointManager
@@ -119,9 +127,10 @@ def _y0_readout(history: list, tail: int) -> float:
 
 
 def _train_one(config, model, method: str, logger: Optional[MetricsLogger],
-               verbose: bool, device: str = "cuda") -> MethodResult:
+               verbose: bool, device: str = "cuda",
+               mesh=None) -> MethodResult:
     solver, unmet = build_solver(config, model, method, device)
-    if unmet:
+    if unmet and (mesh is None or mesh.rank == 0):
         print(f"  {method}: sweep_impl 'pallas' asked for; the kernels do "
               f"not take this head ({'; '.join(unmet)}), so it trains on "
               "the plain sweep (sweep_impl 'xla')", file=sys.stderr)
@@ -136,7 +145,8 @@ def _train_one(config, model, method: str, logger: Optional[MetricsLogger],
     mgr = None
     start_epoch, optimizer_state = 0, None
     if io.outdir and io.checkpoint_every:
-        mgr = CheckpointManager(os.path.join(io.outdir, "ckpt", method))
+        mgr = CheckpointManager(os.path.join(io.outdir, "ckpt", method),
+                                mesh=mesh)
         # on the CPU: load_state_dict moves the optimizer's moments to the
         # params' device and keeps its step counts where Adam wants them
         restored = mgr.restore_latest(map_location="cpu") if io.resume \
@@ -171,12 +181,20 @@ def _train_one(config, model, method: str, logger: Optional[MetricsLogger],
     batch = config.batch_size * (
         config.reg_batch_multiplier
         if scheme in ("sumlocal_reg", "multistep_reg") else 1)
+    val_batch = config.batch_size * 10
+    if mesh is not None:
+        batch = per_shard_batch(batch, mesh)
+        val_batch = per_shard_batch(val_batch, mesh)
+        if verbose:
+            print(f"  data-parallel over {mesh.shape['data']} rank(s), "
+                  f"{batch} paths a rank")
     res = fit(loss_fn=solver.build_loss(batch), params=params, seed=seed,
               lrate=config.lrate_for(method), num_epoch=config.n_epoch,
               num_epoch_ext=config.n_epoch_ext,
-              val_loss_fn=solver.build_loss(config.batch_size * 10),
+              val_loss_fn=solver.build_loss(val_batch),
               y0_fn=solver.y0_estimate, verbose=verbose, on_epoch=on_epoch,
-              start_epoch=start_epoch, optimizer_state=optimizer_state)
+              start_epoch=start_epoch, optimizer_state=optimizer_state,
+              mesh=mesh)
     y0 = _y0_readout(res.y0_history, config.y0_tail_avg)
     ref = model.price_at_origin()
     return MethodResult(method=method, y0_history=res.y0_history,
@@ -190,38 +208,50 @@ def run_pricing(config, verbose: bool = True,
     """The mainMerton/mainVG sweep: train every method of
     ``config.methods``, compare with the oracle price, and write what
     ``config.io`` asks for."""
+    with optional_mesh(config.data_parallel, device) as mesh:
+        return _run_pricing(config, verbose, device, mesh)
+
+
+def _run_pricing(config, verbose: bool, device: str,
+                 mesh) -> PricingRunResult:
     model = build_model(config)
     ref_price = model.price_at_origin()
     io = config.io
+    main = mesh is None or mesh.rank == 0
+    verbose = verbose and main
     logger = None
     if io.outdir and io.metrics_jsonl:
-        os.makedirs(io.outdir, exist_ok=True)
+        if main:
+            os.makedirs(io.outdir, exist_ok=True)
         exp = "merton" if isinstance(config, MertonConfig) else "vg"
         logger = MetricsLogger(os.path.join(io.outdir, "metrics.jsonl"),
-                               tags={"experiment": exp})
+                               tags={"experiment": exp}, mesh=mesh)
         logger.log(event="start", reference_price=ref_price, device=device,
+                   ranks=1 if mesh is None else mesh.size,
                    config={k: str(v) for k, v in
                            dataclasses.asdict(config).items()})
 
     results: Dict[str, MethodResult] = {}
-    with trace_profile(io.profile_dir):
+    with trace_profile(io.profile_dir if main else None):
         for method in config.methods:
             if verbose:
                 print(f"==== method {method} (oracle price {ref_price:.6f})"
                       " ====")
             mlog = logger.child(method=method) if logger else None
             results[method] = _train_one(config, model, method, mlog,
-                                         verbose, device)
+                                         verbose, device, mesh)
             if logger:
                 r = results[method]
                 logger.log(event="method_done", method=method, y0=r.y0,
                            abs_error=r.abs_error, duration_s=r.duration,
                            sweep_impl=r.sweep_impl)
 
-    if io.outdir and io.save_plots:
+    if io.outdir and io.save_plots and main:
         _plot_convergence(config, ref_price, results)
     if logger:
         logger.close()
+    if mesh is not None:
+        mesh.barrier()
     return PricingRunResult(reference_price=ref_price, methods=results)
 
 

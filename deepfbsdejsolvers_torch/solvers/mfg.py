@@ -39,8 +39,9 @@ With ``remat`` each step's differentiable body runs under
 ``torch.utils.checkpoint``; the exogenous tables stay outside it.  The
 reference's Y0 pairing defect (the hat net read on the full state) stays
 fixed.  ``fuse_heads`` and ``compute_dtype`` raise NotImplementedError
-(ROADMAP item 13), a mesh raises (item 12); ``scan_chunk`` is accepted and
-ignored: the port has no scan to chunk.
+(ROADMAP item 13); ``scan_chunk`` is accepted and ignored: the port has no
+scan to chunk.  ``train(mesh=...)`` trains data-parallel
+(``parallel/data_parallel.py``), each data rank on its share of the batch.
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ from deepfbsdejsolvers_torch.models.mfg_smart_grid import (
 from deepfbsdejsolvers_torch.nets.mlp import (
     MLPSpec, get_activation, init_mlp, mlp_apply)
 from deepfbsdejsolvers_torch.ops.numerics import use_full_f32
+from deepfbsdejsolvers_torch.parallel.data_parallel import (
+    broadcast_params, per_shard_batch)
 from deepfbsdejsolvers_torch.solvers.train import fit, make_generator
 
 MFG_SCHEMES = ("global", "multistep", "sumlocal", "sumlocal_reg",
@@ -457,13 +460,14 @@ class MFGSolver:
         generator of (seed, 0), the warm start (global scheme only) from
         (seed, 2) on ``device``, the training noise through ``fit`` from
         ``seed`` (couplage OFF: its second phase from a seed derived from
-        (seed, 3)).  ``on_epoch`` is ``fit``'s hook."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "data parallelism is not ported yet (ROADMAP Queue 1, "
-                "item 12)")
+        (seed, 3)).  ``on_epoch`` is ``fit``'s hook.  Under ``mesh`` both
+        phases train data-parallel: ``batch`` and ``batch_val`` stay the
+        global path counts, each data rank rolling out its
+        ``per_shard_batch`` of them, and rank 0's initial params (warm
+        start included) are every rank's."""
         if couplage not in ("ON", "OFF"):
             raise ValueError(f"couplage must be ON|OFF, got {couplage!r}")
+        verbose = verbose and (mesh is None or mesh.rank == 0)
         params = self.init_params(make_generator("cpu", seed, 0))
         if y0_warm_start and self.scheme == "global":
             params = self.warm_start_y0(
@@ -471,11 +475,16 @@ class MFGSolver:
             if verbose:
                 print(f"warm-started Y0_hat={float(params['hat']['y0']):.4f}"
                       f" Y0={float(params['full']['y0']):.4f}")
+        if mesh is not None:
+            # the net a phase freezes is rank 0's too
+            broadcast_params(params, mesh)
+            batch = per_shard_batch(batch, mesh)
+            batch_val = per_shard_batch(batch_val, mesh)
         pair_train = self.build_pair_loss(batch)
         pair_val = self.build_pair_loss(batch_val)
         common = dict(lrate=lrate, num_epoch=num_epoch,
                       num_epoch_ext=num_epoch_ext, verbose=verbose,
-                      on_epoch=on_epoch)
+                      on_epoch=on_epoch, mesh=mesh)
         if couplage == "ON":
             def summed(pair):
                 def loss(p, g):

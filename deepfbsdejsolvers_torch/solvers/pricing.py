@@ -51,14 +51,27 @@ is the raw step index i (times ``time_scale``), not i·dt; the sumlocal
 schemes evaluate the step-(i+1) state with time feature i and carry the
 jump of the row before into the next forward step.
 
-The 2-D Γ tables, the hand-written adjoint, bf16 heads and compensator
-sharding raise NotImplementedError (ROADMAP Queue 1).
+With ``comp_axis`` (``parallel/data_parallel.py``) the un-hoisted
+compensator shards its node axis over that axis of the mesh the loss is
+built on (``build_loss(batch, mesh)``, as the JAX package's loss binds
+the axis inside its ``shard_map``): each rank
+sweeps its slice of the quadrature (padded with zero-weight nodes to a
+multiple of ``comp_shards``) or of each step's Monte-Carlo draws (the
+ranks of one data shard draw the same noise, so each takes its
+``1/comp_shards`` of the columns), at every path (a Chebyshev compensator
+too), through B3/B4 with ``sweep_impl="pallas"``; the partial sums are
+summed over the axis (quadrature) or averaged (Monte-Carlo) by a
+differentiable all-reduce.
+
+The 2-D Γ tables, the hand-written adjoint and bf16 heads raise
+NotImplementedError (ROADMAP Queue 1).
 ``scan_chunk`` is accepted and ignored: it shapes the JAX package's XLA
 scan, and the port has no scan.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Tuple
@@ -79,6 +92,7 @@ from deepfbsdejsolvers_torch.ops.rollout import (
     rollout_plain, table_eval)
 from deepfbsdejsolvers_torch.ops.sweep import (
     SWEEP_MAX_WIDTH, fused_sweep, rank1_three_feature, rank1_two_feature)
+from deepfbsdejsolvers_torch.parallel.data_parallel import psum
 
 PRICING_SCHEMES = ("global", "multistep1", "multistep2", "sumlocal1",
                    "sumlocal2", "sumlocal_reg", "multistep_reg")
@@ -116,6 +130,9 @@ class PricingSolver:
     and refuse it.
     ``remat`` runs each step's plain sweep under ``torch.utils.checkpoint``,
     so that only its (B,) output persists until the backward.
+    ``comp_axis`` and ``comp_shards`` shard the compensator's node axis
+    (module docstring); the loss is then built on a mesh whose
+    ``comp_axis`` has ``comp_shards`` ranks, and runs on its ranks.
     """
 
     model: object
@@ -127,6 +144,7 @@ class PricingSolver:
     compute_dtype: Optional[str] = None
     sweep_impl: str = "xla"
     comp_axis: Optional[str] = None
+    comp_shards: int = 1
     hoist: bool = False
     hoist_pad_frac: float = 0.15
     hoist_interp: str = "clenshaw"
@@ -156,6 +174,7 @@ class PricingSolver:
             raise ValueError("hoist=True requires compensator.x_interp="
                              "'chebyshev' (the hoisted tables are the "
                              "collocation)")
+        self._check_comp_sharding()
         unmet = {
             "fused_rollout=True": self.fused_rollout and self.fused_unmet(),
             "sweep_impl='pallas'":
@@ -166,7 +185,6 @@ class PricingSolver:
                 raise ValueError(f"{flag} precondition not met: "
                                  + "; ".join(reasons))
         unported = {
-            "comp_axis sharding": self.comp_axis is not None,
             "compute_dtype": self.compute_dtype is not None,
             "hoist_gamma": self.hoist_gamma,
             "adjoint": self.adjoint,
@@ -185,8 +203,44 @@ class PricingSolver:
             dev = torch.device(self.device)
             quad = tuple(t.to(dev) for t in
                          self.model.jump_quadrature(self.compensator))
+            if self.comp_axis is not None:
+                # zero-weight nodes so that the count divides the shards
+                pad = -quad[0].shape[0] % self.comp_shards
+                quad = tuple(torch.nn.functional.pad(t, (0, pad))
+                             for t in quad)
         object.__setattr__(self, "_quad", quad)
         object.__setattr__(self, "_act", get_activation(self.activation))
+        object.__setattr__(self, "_mesh", None)
+
+    def _check_comp_sharding(self) -> None:
+        if self.comp_axis is None:
+            return
+        if self.hoist:
+            raise ValueError("hoist=True is incompatible with compensator-"
+                             "axis sharding (comp_axis)")
+        if self.comp_shards < 1:
+            raise ValueError(f"comp_shards must be positive, got "
+                             f"{self.comp_shards}")
+        if (self.compensator.kind == "mc"
+                and self.compensator.n_mc % self.comp_shards):
+            raise ValueError(f"comp_shards ({self.comp_shards}) must divide "
+                             f"n_mc ({self.compensator.n_mc})")
+
+    def _on_mesh(self, mesh) -> "PricingSolver":
+        """This solver, or with ``comp_axis`` a copy bound to ``mesh``
+        (whose ``comp_axis`` must have ``comp_shards`` ranks), whose
+        compensator sweeps the rank's slice of the nodes."""
+        if self.comp_axis is None:
+            return self
+        size = None if mesh is None else mesh.shape.get(self.comp_axis)
+        if size != self.comp_shards:
+            raise ValueError(f"comp_axis {self.comp_axis!r} with comp_shards "
+                             f"{self.comp_shards} needs a mesh with that "
+                             f"axis of that size (build_loss(batch, mesh)); "
+                             f"got {size}")
+        bound = copy.copy(self)
+        object.__setattr__(bound, "_mesh", mesh)
+        return bound
 
     # ------------------------------------------------------------------ nets
     @property
@@ -370,16 +424,28 @@ class PricingSolver:
                                              weights)
         return fused_sweep(x, a, c, head["W"][1], head["b"][1], v) + wb2
 
+    def _comp_slice(self, nodes, weights):
+        """This rank's slice of the node set on ``comp_axis``."""
+        per = nodes.shape[0] // self.comp_shards
+        c = self._mesh.coord(self.comp_axis)
+        at = slice(per * c, per * (c + 1))
+        return nodes[at], None if weights is None else weights[at]
+
     def _gamma_and_compensator(self, params, i, x, j, mc_nodes):
         """Γ(t, X, J) at the realized jump and its compensator E_J'[Γ] for
         one un-hoisted step, both (B,).  The compensator sweeps the step's
         Monte-Carlo draws ``mc_nodes`` (uniform weights) or the quadrature,
-        at every path or at ``n_cheb`` collocation points."""
+        at every path or at ``n_cheb`` collocation points; with
+        ``comp_axis``, this rank's slice of them at every path, summed (or,
+        Monte-Carlo, averaged) over the axis."""
         gam = self._gamma_head(params, i, x, j)
         spec = self.compensator
         nodes, weights = ((mc_nodes, None) if spec.kind == "mc"
                           else self._quad)
-        if spec.x_interp == "chebyshev":
+        sharded = self.comp_axis is not None
+        if sharded:
+            nodes, weights = self._comp_slice(nodes, weights)
+        if spec.x_interp == "chebyshev" and not sharded:
             comp = interp_1d(
                 lambda xn: self._sweep_comp_at(params, i, xn, nodes, weights),
                 x, spec.n_cheb, robust_sigmas=spec.cheb_robust_sigmas)
@@ -391,6 +457,10 @@ class PricingSolver:
             comp = sweep() if x.is_cuda else self._remat(sweep)
         else:
             comp = self._sweep_mean(params, i, x, nodes, weights)
+        if sharded:
+            comp = psum(comp, self._mesh, self.comp_axis)
+            if weights is None:
+                comp = comp / self.comp_shards
         return gam, comp
 
     def _heads_gamma_comp(self, params, tables, i, x, j, mc_nodes):
@@ -536,10 +606,11 @@ class PricingSolver:
         they apply): a swept head the kernels take (two equal tanh layers at
         most ``SWEEP_MAX_WIDTH`` wide and one output: a Γ net, or the
         pure-jump U-net of multistep1/sumlocal1, not the jump-diffusion
-        2-output U-net), f32 heads, and no compensator sharding.  The JAX
-        package warns and falls back to its XLA sweep on these; the port
-        refuses them (the pricing pipeline chooses the plain sweep for such
-        a method before it builds the solver, and says so)."""
+        2-output U-net) and f32 heads; under ``comp_axis`` they sweep the
+        rank's slice of the nodes.  The JAX package warns and falls back to
+        its XLA sweep on these; the port refuses them (the pricing pipeline
+        chooses the plain sweep for such a method before it builds the
+        solver, and says so)."""
         reasons = self._head_unmet(SWEEP_MAX_WIDTH)
         if not self.use_gam_net and self.with_heads and self.jump_diff:
             reasons.append(f"scheme {self.scheme!r} sweeps the 2-output "
@@ -548,9 +619,6 @@ class PricingSolver:
         if self.compute_dtype is not None:
             reasons.append(f"compute_dtype {self.compute_dtype!r}: the "
                            "kernels compute in f32")
-        if self.comp_axis is not None:
-            reasons.append("comp_axis: the kernels sweep an unsharded node "
-                           "set")
         return reasons
 
     # --------------------------------------------------------------- global
@@ -687,29 +755,29 @@ class PricingSolver:
         return torch.sum(torch.stack(errs))
 
     # ------------------------------------------------------------------ loss
-    def build_loss_from_noise(self, batch: int) -> Callable:
+    def build_loss_from_noise(self, batch: int, mesh=None) -> Callable:
         """``loss(params, noise)`` on given noise tensors — (dw, j), or (dw,
         j, mc_nodes) with the Monte-Carlo compensator, each of
         ``noise_rows`` rows, dw (rows, 0) in the pure-jump regime — so that
-        the same noise can drive this solver and another
-        implementation."""
-        roll = (self._rollout() if self.hoist and self.scheme == "global"
-                else None)
+        the same noise can drive this solver and another implementation.
+        With ``comp_axis``, the loss of this rank of ``mesh``."""
+        s = self._on_mesh(mesh)
+        roll = (s._rollout() if s.hoist and s.scheme == "global" else None)
 
         def loss(params, noise):
-            self._check_noise(noise, batch)
-            if self.scheme == "global":
-                return self._global_loss(params, noise, roll)
-            if self.scheme.startswith("multistep"):
-                return self._multistep_loss(params, noise)
-            return self._sumlocal_loss(params, noise)
+            s._check_noise(noise, batch)
+            if s.scheme == "global":
+                return s._global_loss(params, noise, roll)
+            if s.scheme.startswith("multistep"):
+                return s._multistep_loss(params, noise)
+            return s._sumlocal_loss(params, noise)
 
         return loss
 
-    def build_loss(self, batch: int) -> Callable:
+    def build_loss(self, batch: int, mesh=None) -> Callable:
         """``loss(params, generator)``: draws the noise on ``generator``
         (which must live on ``self.device``), then the loss above."""
-        from_noise = self.build_loss_from_noise(batch)
+        from_noise = self.build_loss_from_noise(batch, mesh)
 
         def loss(params, generator):
             return from_noise(params, self._prenoise(generator, batch,

@@ -8,7 +8,10 @@ gates' schedule).  The noise of outer
 epoch k comes from generators seeded by (seed, 1, 2k) and (seed, 1, 2k + 1),
 so a run resumed at epoch k with the optimizer's state
 (``start_epoch``, ``optimizer_state``; ``utils/checkpointing.py``)
-replays the uncut run's remaining epochs bit for bit.
+replays the uncut run's remaining epochs bit for bit.  Under a mesh
+(``parallel/data_parallel.py``) each data rank folds its data coordinate
+into those generators (``fold_in``), so a resumed data-parallel run replays
+the uncut one too.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+from deepfbsdejsolvers_torch.parallel.data_parallel import (
+    all_ranks_true, all_reduce_grads, broadcast_params, make_dp_loss)
 
 
 @dataclasses.dataclass
@@ -42,6 +47,13 @@ def make_generator(device, seed: int, *path: int) -> torch.Generator:
     g.manual_seed(int(np.random.SeedSequence([seed, *path]).generate_state(
         1)[0]))
     return g
+
+
+def fold_in(generator: torch.Generator, i: int) -> torch.Generator:
+    """A generator on ``generator``'s device seeded by (its seed, ``i``),
+    whatever it has drawn since: the counterpart of ``jax.random.fold_in``,
+    with which a data rank derives its shard's generator."""
+    return make_generator(generator.device, generator.initial_seed(), i)
 
 
 LearningRate = Union[float, Callable[[int], float]]
@@ -70,13 +82,19 @@ def make_adam(params, lrate: LearningRate) -> torch.optim.Adam:
 
 def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
               params, lrate: Optional[Callable[[int], float]] = None,
-              start_count: int = 0) -> Callable:
+              start_count: int = 0, mesh=None) -> Callable:
     """``step(generator) -> loss``: one gradient step on a fresh draw.  With
     a schedule ``lrate``, the k-th call's update runs at
     ``lrate(start_count + k)``.  With autograd's anomaly mode on (the NaN
     guard, ``utils/debug.py``) a non-finite loss raises FloatingPointError
-    before its backward."""
+    before its backward, on every rank of a mesh if it is so on one.
+    Under ``mesh`` the step is on the mesh-mean loss, which it returns:
+    the backward of this rank's loss, then one all-reduce of the
+    gradients (``all_reduce_grads``)."""
     count = start_count
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
 
     def step(generator):
         nonlocal count
@@ -85,11 +103,17 @@ def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
                 group["lr"] = lrate(count)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, generator)
-        if torch.is_anomaly_enabled() and not bool(torch.isfinite(loss)):
-            raise FloatingPointError(
-                f"non-finite training loss {float(loss.detach())} at "
-                f"update {count}")
+        if torch.is_anomaly_enabled():
+            finite = bool(torch.isfinite(loss))
+            if mesh is not None:
+                finite = all_ranks_true(finite, mesh)
+            if not finite:
+                raise FloatingPointError(
+                    f"non-finite training loss {float(loss.detach())} at "
+                    f"update {count}")
         loss.backward()
+        if mesh is not None:
+            loss = all_reduce_grads(leaves, loss, mesh)
         optimizer.step()
         count += 1
         return loss.detach()
@@ -109,7 +133,9 @@ def fit(loss_fn: Callable, params, seed: int, lrate: LearningRate,
         val_loss_fn: Optional[Callable] = None,
         y0_fn: Optional[Callable] = None, verbose: bool = True,
         on_epoch: Optional[Callable[[int, dict, Any], None]] = None,
-        start_epoch: int = 0, optimizer_state: Optional[dict] = None
+        start_epoch: int = 0, optimizer_state: Optional[dict] = None,
+        mesh=None, data_axis: str = "data",
+        optimizer: Optional[Callable[[list], torch.optim.Optimizer]] = None
         ) -> TrainResult:
     """Train ``params`` (leaf tensors, updated in place) for outer epochs
     ``start_epoch`` .. num_epoch_ext − 1 of num_epoch Adam steps each, at
@@ -124,32 +150,50 @@ def fit(loss_fn: Callable, params, seed: int, lrate: LearningRate,
     seed))`` fires after each outer epoch: the hook for metrics logging and
     checkpoints, whose state is the params, ``optimizer.state_dict()``, the
     seed and k.  Resume: ``start_epoch`` = k + 1 and ``optimizer_state``
-    that state dict, with ``params`` holding the saved leaves."""
+    that state dict, with ``params`` holding the saved leaves.
+
+    ``mesh`` (``parallel/data_parallel.py``) trains data-parallel:
+    ``loss_fn`` and ``val_loss_fn`` are then per-rank losses, built at the
+    per-rank batch; rank 0's params are broadcast first; each data rank
+    draws from ``fold_in`` of the generators above by its coordinate on
+    ``data_axis``; every update is on the mesh-mean loss, and the
+    validation loss is the mesh mean.  ``on_epoch`` fires on every rank,
+    with the same state on each; only rank 0 prints.  ``optimizer`` maps
+    the parameter leaves to the optimizer to train with, Adam at ``lrate``
+    by default."""
     leaves = param_leaves(params)
-    for t in leaves:
-        t.requires_grad_(True)
     device = leaves[0].device
-    optimizer = make_adam(params, lrate)
+    opt = (make_adam(params, lrate) if optimizer is None
+           else optimizer(leaves))
     if optimizer_state is not None:
-        optimizer.load_state_dict(optimizer_state)
-    step = make_step(loss_fn, optimizer, params,
+        opt.load_state_dict(optimizer_state)
+    step = make_step(loss_fn, opt, params,
                      lrate if callable(lrate) else None,
-                     start_count=start_epoch * num_epoch)
+                     start_count=start_epoch * num_epoch, mesh=mesh)
+    shard = lambda g: g
+    val_fn = val_loss_fn
+    if mesh is not None:
+        broadcast_params(params, mesh)
+        coord = mesh.coord(data_axis)
+        shard = lambda g: fold_in(g, coord)
+        if val_loss_fn is not None:
+            val_fn = make_dp_loss(val_loss_fn, mesh)
+        verbose = verbose and mesh.rank == 0
     y0_hist: List[float] = []
     loss_hist: List[float] = []
     dur_hist: List[float] = []
     duration = 0.0
     for iout in range(start_epoch, num_epoch_ext):
-        gen = make_generator(device, seed, 1, 2 * iout)
+        gen = shard(make_generator(device, seed, 1, 2 * iout))
         t0 = time.perf_counter()
         for _ in range(num_epoch):
             last_loss = step(gen)
         last = float(last_loss)          # waits for the device
         duration += time.perf_counter() - t0
-        if val_loss_fn is not None:
+        if val_fn is not None:
             with torch.no_grad():
-                obj = float(val_loss_fn(
-                    params, make_generator(device, seed, 1, 2 * iout + 1)))
+                obj = float(val_fn(params, shard(make_generator(
+                    device, seed, 1, 2 * iout + 1))))
         else:
             obj = last
         y0 = _floats(y0_fn(params)) if y0_fn is not None else float("nan")
@@ -161,5 +205,5 @@ def fit(loss_fn: Callable, params, seed: int, lrate: LearningRate,
         dur_hist.append(duration)
         if on_epoch is not None:
             on_epoch(iout, {"loss": obj, "y0": y0, "duration_s": duration},
-                     (params, optimizer, seed))
+                     (params, opt, seed))
     return TrainResult(params, y0_hist, loss_hist, duration, dur_hist)

@@ -13,7 +13,9 @@ package's ``fold_in`` of the epoch into a saved key does.
 Layout: ``root/step_<n>/state.pt`` per save, the oldest pruned beyond
 ``keep``.  Each file is written under a temporary name and renamed into
 place (``os.replace``), so a run killed mid-write never leaves a partial
-file as the latest checkpoint.
+file as the latest checkpoint.  Under a mesh (``parallel/data_parallel.py``)
+rank 0 alone writes, and every rank waits at a barrier after each save
+before it goes on; every rank reads a restore.
 """
 
 from __future__ import annotations
@@ -45,16 +47,21 @@ def restore_checkpoint(path: str, map_location=None) -> Any:
 
 class CheckpointManager:
     """The latest ``keep`` checkpoints under ``root``, one ``step_<n>/``
-    directory per save."""
+    directory per save; under ``mesh`` written by rank 0 alone."""
 
-    def __init__(self, root: str, keep: int = 3):
+    def __init__(self, root: str, keep: int = 3, mesh=None):
         self.root = os.path.abspath(root)
         self.keep = keep
-        os.makedirs(self.root, exist_ok=True)
+        self.mesh = mesh
+        self._writes = mesh is None or mesh.rank == 0
+        if self._writes:
+            os.makedirs(self.root, exist_ok=True)
 
     def _steps(self):
         """(step, directory) of every complete checkpoint, oldest first."""
         out = []
+        if not os.path.isdir(self.root):
+            return out
         for name in os.listdir(self.root):
             path = os.path.join(self.root, name)
             if (name.startswith("step_") and name[5:].isdigit()
@@ -64,10 +71,13 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any) -> str:
         path = os.path.join(self.root, f"step_{step}")
-        save_checkpoint(path, state)
-        steps = self._steps()
-        for _, victim in steps[:max(0, len(steps) - self.keep)]:
-            shutil.rmtree(victim, ignore_errors=True)
+        if self._writes:
+            save_checkpoint(path, state)
+            steps = self._steps()
+            for _, victim in steps[:max(0, len(steps) - self.keep)]:
+                shutil.rmtree(victim, ignore_errors=True)
+        if self.mesh is not None:
+            self.mesh.barrier()
         return path
 
     def latest_step(self) -> Optional[int]:

@@ -58,10 +58,14 @@ class JSONLWriter:
 class MetricsLogger:
     """Per-epoch metrics sink: an optional JSONL file and an optional echo
     to stdout; every record carries the logger's tags and the seconds since
-    it started."""
+    it started.  Under ``mesh`` (``parallel/data_parallel.py``) rank 0
+    alone writes and echoes, so that each record appears once."""
 
     def __init__(self, path: Optional[str] = None,
-                 tags: Optional[Dict[str, Any]] = None, echo: bool = False):
+                 tags: Optional[Dict[str, Any]] = None, echo: bool = False,
+                 mesh=None):
+        if mesh is not None and mesh.rank != 0:
+            path, echo = None, False
         self._writer = JSONLWriter(path) if path else None
         self._tags = dict(tags or {})
         self._echo = echo

@@ -98,10 +98,31 @@ def test_exit_2_without_a_card(cmd, monkeypatch, capsys):
     assert "--device cpu" in capsys.readouterr().err
 
 
+# each subcommand cut to one outer epoch of one step on a few paths
+TINY = {
+    "merton": ["--nEpochExt", "1", "--nEpoch", "1", "--batchSize", "4",
+               "--methods", "Global", "--nbNeuron", "8"],
+    "vg": ["--nEpochExt", "1", "--nEpoch", "1", "--batchSize", "4",
+           "--methods", "Global", "--nbNeuron", "8"],
+    "mfg-compare": ["--nEpochExt", "1", "--nEpoch", "1", "--batchSize", "4",
+                    "--methods", "Global", "--nbDays", "1",
+                    "--nbSimulation", "0"],
+    "mfg-poa": ["--nEpochExt", "1", "--nEpoch", "1", "--batchSize", "4",
+                "--nbDays", "1", "--nFrozen", "8", "--piList", "0.1"],
+}
+
+
 @pytest.mark.parametrize("cmd", SUBCOMMANDS)
-def test_data_parallel_is_refused(cmd, capsys):
-    assert tcli.main([cmd, "--dataParallel", "--device", "cpu"]) == 2
-    assert "item 12" in capsys.readouterr().err
+def test_data_parallel_runs_a_world_of_one(cmd, capsys):
+    """Without a launcher ``--dataParallel`` joins a world of one rank
+    (gloo on the CPU), trains, and leaves the world when done."""
+    import torch.distributed as dist
+
+    assert tcli.main([cmd, "--dataParallel", "--device", "cpu",
+                      *TINY[cmd]]) == 0
+    assert "data parallel: 1 rank(s), backend gloo" in \
+        capsys.readouterr().out
+    assert not dist.is_initialized()
 
 
 def test_module_entry_point_exits_2_without_a_card():

@@ -46,7 +46,9 @@ def test_importing_every_module_loads_no_jax():
         "experiments.configs", "experiments.mfg_comparison",
         "experiments.mfg_poa", "utils.logging", "experiments.pricing",
         "experiments.cli", "utils.checkpointing", "utils.profiling",
-        "utils.debug", "experiments.bench", "__main__")} <= names
+        "utils.debug", "experiments.bench", "__main__",
+        "parallel.data_parallel", "parallel.launch",
+        "experiments.dryrun_multichip")} <= names
 
 
 @pytest.mark.parametrize("path", sorted(

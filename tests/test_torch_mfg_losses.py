@@ -168,8 +168,6 @@ def test_refusals():
     with pytest.raises(ValueError, match="scheme"):
         TorchMFG(m, "multistep1", device="cpu")
     ts = TorchMFG(m, "global", device="cpu", scan_chunk=4, **SMALL)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ts.train(0, 8, 8, 1, 1, 1e-3, verbose=False, mesh=object())
     with pytest.raises(ValueError, match="couplage"):
         ts.train(0, 8, 8, 1, 1, 1e-3, verbose=False, couplage="on")
     with pytest.raises(ValueError, match="no trainable y0"):
@@ -179,6 +177,19 @@ def test_refusals():
     noise = ts._prenoise(gen, 16)
     with pytest.raises(ValueError, match="noise must be"):
         ts.build_pair_loss_from_noise(8)(ts.init_params(gen), noise)
+
+
+def test_train_on_a_mesh_of_one():
+    """``train(mesh=...)`` on a world of one rank (gloo, in this process):
+    the global batch is the rank's, and training moves both read-outs."""
+    from deepfbsdejsolvers_torch.parallel.data_parallel import optional_mesh
+
+    ts = TorchMFG(tiny(torch_mfg), "global", device="cpu", **SMALL)
+    with optional_mesh(True, "cpu") as mesh:
+        res = ts.train(0, 8, 8, 2, 2, 1e-2, verbose=False, mesh=mesh)
+    y0s = [res.y0_hat_history, res.y0_history]
+    assert np.all(np.isfinite(y0s)) and np.all(np.isfinite(res.loss_history))
+    assert all(h[0] != h[1] for h in y0s)
 
 
 def test_cpu_training_launches_no_kernel_and_needs_no_card():

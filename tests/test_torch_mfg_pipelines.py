@@ -57,14 +57,16 @@ def test_configs_match_jax():
     assert cfg.lrate_for("SumLocalReg") == cfg.lrate_loc
 
 
-def test_refusals_name_item_12():
-    """Data parallelism is what item 12 still refuses (checkpoints,
-    resume and profiling are ported: tests/test_torch_checkpoint.py,
-    tests/test_torch_utils.py)."""
+def test_configs_take_data_parallel():
+    """All four configurations take ``data_parallel=True`` (the pipelines
+    run it: tests/test_torch_parallel_pipelines.py); a ``compute_dtype``
+    is what the pricing configurations still refuse (item 13)."""
     for config in (tc.MFGPoAConfig, tc.MFGComparisonConfig, tc.MertonConfig,
                    tc.VGConfig):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            config(data_parallel=True)
+        assert config(data_parallel=True).data_parallel
+    for config in (tc.MertonConfig, tc.VGConfig):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            config(data_parallel=True, compute_dtype="bfloat16")
 
 
 @pytest.mark.parametrize("pipeline", ["mfg-compare", "mfg-poa"])

@@ -128,7 +128,6 @@ def test_cuda_request_without_a_card_raises():
 
 @pytest.mark.parametrize("kw", [
     dict(hoist_z=False),
-    dict(comp_axis="comp"),
     dict(compute_dtype="bfloat16"),
     dict(adjoint=True),
     dict(hoist_gamma=True),
@@ -137,6 +136,14 @@ def test_unported_configurations_raise(kw):
     args = dict(HOIST, hidden=(8, 8), device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PricingSolver(_model(), "global", **args)
+
+
+def test_hoist_with_comp_axis_raises():
+    """The hoisted tables sweep every node at once: compensator sharding
+    is for the un-hoisted sweep, as in the JAX package."""
+    with pytest.raises(ValueError, match="hoist=True is incompatible"):
+        PricingSolver(_model(), "global", hidden=(8, 8), device="cpu",
+                      comp_axis="comp", comp_shards=2, **HOIST)
 
 
 def test_b2_blocks_are_capped_independently_of_the_batch():

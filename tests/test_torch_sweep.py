@@ -245,7 +245,6 @@ def test_parity_configuration_builds_with_the_defaults():
     (dict(hidden=(8, 8, 8)), "two equal layers"),
     (dict(activation="relu"), "activation"),
     (dict(compute_dtype="bfloat16"), "compute_dtype"),
-    (dict(comp_axis="comp"), "comp_axis"),
 ])
 def test_sweep_preconditions_raise_before_touching_cuda(kw, match):
     """An unmet precondition of the sweep kernels raises ValueError at
@@ -255,3 +254,12 @@ def test_sweep_preconditions_raise_before_touching_cuda(kw, match):
     with pytest.raises(ValueError, match=match):
         TorchPS(dataclasses.replace(torch_merton(), N=3), "global",
                 sweep_impl="pallas", device="cuda", **args)
+
+
+def test_sweep_kernels_take_a_shard_of_the_nodes():
+    """Under compensator sharding B3/B4 sweep each rank's slice of the
+    49-node quadrature, padded with a zero-weight node to 50."""
+    s = TorchPS(torch_merton(), "global", sweep_impl="pallas", device="cpu",
+                comp_axis="comp", comp_shards=2)
+    assert s.sweep_unmet() == []
+    assert s._quad[0].shape == (50,) and float(s._quad[1][-1]) == 0.0
