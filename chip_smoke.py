@@ -153,6 +153,23 @@ Phases, each fatal on failure:
    (``experiments/dryrun_multichip.py``) at 4 ranks; (e) ``merton
    --dataParallel --methods Global`` under ``torch.distributed.run
    --nproc_per_node 1`` (NCCL), exit 0 and each record written once.
+10. the opt-in instruments (``item13_phases``): the hand-written adjoint
+   against autograd on the unfused speed path at one noise draw (loss
+   within 1e-6, gradients 3e-5 relative) and both step times;
+   ``scan_chunk`` 0, 5 and 16 on the unfused speed path, the parity path
+   and the MFG global scheme (losses and gradients bit-identical, the
+   peak memory of each); one speed step each of ``hoist_gamma``,
+   ``hoist_z=False``, ``price_mode="table"`` and ``compute_dtype=
+   "bfloat16"``, its loss within 5e-4 (bf16: 5e-3) of the f32 default;
+   ``fuse_heads`` against the split heads on the five MFG schemes (loss
+   1e-6, gradient 1e-5 relative), with step times, and device ops on the
+   global scheme; the head-TF32 instances of B1, B2, B1w and B2w against
+   their plain versions at hidden 21, 20, 64 and 128 (``check_kernels``,
+   the forward step by step on B1's own trajectory), the fused speed path
+   trained on them (its launches the TF32 rows' launches), and their times
+   beside the FP32 instances' in turns (A, B, B, A); and the bench with
+   ``--adjoint``, ``--rng rbg`` and ``--fused --fusedPrecision default``,
+   each exiting 0 with its launches exact.
 
 The line before the last holds the card's name and power limit
 (nvidia-smi), the one before it the kernels' JSON record (each kernel's
@@ -163,7 +180,9 @@ set under ``by_width``, with the tensor-core floor of the wide pairs
 beside their FP32 bound; the bench cells' lines under ``bench``, the
 unfused speed cell's and the VG speed step's times under ``f1``, the
 data-parallel phases' under ``dp``, whose launches are in each kernel's
-``launches_by_path`` as ``dp_a``..``dp_dryrun``, summed over ranks); the last
+``launches_by_path`` as ``dp_a``..``dp_dryrun``, summed over ranks; the
+head-TF32 rows named "... [head tf32]", and the opt-in instruments'
+figures under ``item13``); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -319,6 +338,28 @@ BENCH_CELLS = (
 # The plain sweep's checks run over node blocks of at most this many M·B·H
 # grid elements (2 GB a tensor), so its autograd fits the card at H = 128
 PLAIN_GRID = 2**29
+# The opt-in instruments' phase: the chunks of the time loop held bit for
+# bit to the plain loop, the bounds of one speed step's loss against the f32
+# default (the JAX package's, tests/test_fast_paths.py: bf16 5e-3,
+# hoist_gamma 5e-4, and 5e-4 for the other table and head variants), the
+# hand adjoint's (tests/test_adjoint.py) and fuse_heads' against the split
+# heads (tests/test_fast_paths.py), and the TF32 instances' widths.
+ITEM13_CHUNKS = (0, 5, 16)
+ITEM13_LOSS_REL = {"hoist_gamma": 5e-4, "hoist_z=False": 5e-4,
+                   "price_mode=table": 5e-4, "bfloat16": 5e-3}
+ADJOINT_LOSS_REL, ADJOINT_GRAD_REL = 1e-6, 3e-5
+FUSE_LOSS_REL, FUSE_GRAD_REL = 1e-6, 1e-5
+TF32_WIDTHS = (21, 20, 64, 128)
+TF32_TIMED = (21, 64, 128)
+# the bench's opt-in flags, 2 warm-up and 1 timed epoch of 2 steps: the
+# adjoint and --rng rbg on the unfused speed cell (no kernel), the fused
+# cell's select precision (B1/B2 once a step)
+ITEM13_BENCH = (
+    ("adjoint", "module", ["--adjoint"], {}),
+    ("rng_rbg", "cli", ["--rng", "rbg"], {}),
+    ("fused_precision_default", "cli", ["--fused", "--fusedPrecision",
+                                        "default"], {"B1": 6, "B2": 6}),
+)
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
 # FP32 outside the tensor cores, TF32 on them (dense), and HBM3 bandwidth.
 PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
@@ -624,8 +665,11 @@ def check_wide_grads(op, model, inputs, loss) -> dict:
     b1, b2 = rollout_pair(op)
     gam, y0, tabs, dw, j = inputs
     leaves = grad_leaves(gam, y0, tabs)
+    tf32 = {"head_tf32": True} if getattr(op.spec, "head_tf32", False) \
+        else {}
     xp, yp, pxs, pys = R.rollout_plain(model, gam, y0, tabs, dw, j,
-                                       op.spec.time_scale, residuals=True)
+                                       op.spec.time_scale, residuals=True,
+                                       **tf32)
     gp = torch.autograd.grad(loss(xp, yp), leaves, retain_graph=True)
     # (a): B2 on the plain trajectory
     xl, yl = xp.detach().requires_grad_(True), yp.detach().requires_grad_(True)
@@ -680,6 +724,57 @@ def check_wide_grads(op, model, inputs, loss) -> dict:
             "straddling_paths": n_skip, "rel_err_all_paths": unmasked}
 
 
+def tf32_step_errors(op, model, inputs):
+    """The head-TF32 instance's forward held step by step, on every path and
+    every step: B1's own trajectory (its residuals x_i and y_{i+1}) fed back
+    a step at a time through the plain version's step under the same flag
+    (``rollout_plain``'s body, run by its ``scan`` hook), each step's
+    (x_{i+1}, y_{i+1}) against B1's.  Rounding to TF32 makes h1 a step
+    function of x, so two trajectories that run freely a last bit apart
+    land a whole TF32 unit (2^-11 of h1) apart where one of them crosses a
+    step, and part by more than the forward tolerance; fed the same state,
+    the kernel's h1 and the plain version's are the same bits (the first
+    layer summed in the plain order, ``first_sum_tf32``), so no path is left
+    out.  Returns per path the sum over the steps of max(|Δx|, |Δy|), the
+    distance the kernel's own rounding puts between the two ends to first
+    order, and (a count printed) how many paths' free runs end more than
+    ``FWD_ABS_TOL`` apart."""
+    R = kernel_module(op)
+    gam, y0, tabs, dw, j = inputs
+    (w1, w2, w3), (bb1, bb2, b3) = gam["W"], gam["b"]
+    weights = tuple(t.detach() for t in (w1, bb1, w2, bb2, w3))
+    ktabs = {"cc": R._fold_b3(tabs["cc"].detach(), b3.detach()),
+             "pc": tabs["pc"].detach(), "zc": tabs["zc"].detach(),
+             "lo": tabs["lo"], "hi": tabs["hi"]}
+    errs = []
+
+    def forced(body, carry, n):
+        x_to = torch.cat([kxs[1:], kxn[None]])
+        err = (kxs[0] - carry[0]).abs()
+        for i in range(n):
+            y_in = carry[1] if i == 0 else kys[i - 1]
+            (x1, y1), _ = body((kxs[i], y_in), i)
+            err = err + torch.maximum((x1 - x_to[i]).abs(),
+                                      (y1 - kys[i]).abs())
+        errs.append(err)
+        return (kxn, kyn), None
+
+    with torch.no_grad():
+        kxn, kyn, kxs, kys = rollout_pair(op)[0](
+            op.spec, weights, y0.detach(), ktabs, dw, j, save=True)
+        R.rollout_plain(model, gam, y0, tabs, dw, j, op.spec.time_scale,
+                        head_tf32=True, scan=forced)
+        pxn, pyn = op.plain(gam, y0, tabs, dw, j)
+    free = torch.maximum((kxn - pxn).abs(), (kyn - pyn).abs())
+    n_free = int((free > FWD_ABS_TOL).sum())
+    print(f"head TF32: B1 step by step on its own trajectory, every path: "
+          f"the largest path's Σ_i max|Δ(x, y)| {float(errs[0].max()):.3e}"
+          f" (tol {FWD_ABS_TOL}); free runs: {n_free} of "
+          f"{free.shape[0]} paths end more than {FWD_ABS_TOL} apart "
+          f"(max {float(free.max()):.3e}, TF32 steps crossed apart)")
+    return errs[0]
+
+
 def check_kernels(op, model, inputs) -> dict:
     """Phase 2: each kernel of ``op``'s width against the plain rollout on
     the same inputs: B1's (x_N, y_N) and loss; B2's gradients, and B2 twice
@@ -687,17 +782,25 @@ def check_kernels(op, model, inputs) -> dict:
     paths, as a whole (each leaf printed); the wide B2 as
     ``check_wide_grads`` says, as a whole and leaf by leaf (W1, W2, W3, b1,
     b2, b3, y0, cc, pc, zc), so that a wrong leaf the global norm would
-    hide fails."""
+    hide fails.  A head-TF32 ``op``'s forward is held step by step on its
+    own trajectory (``tf32_step_errors``), its loss and gradients as the
+    FP32 instance's."""
     b2 = rollout_pair(op)[1]
     gam, y0, tabs, dw, j = inputs
     loss = lambda x, y: torch.mean(torch.square(y - model.payoff(x)))
     with torch.no_grad():
         xk, yk = op(gam, y0, tabs, dw, j)
         xp, yp = op.plain(gam, y0, tabs, dw, j)
-    fwd_err = max(float((xk - xp).abs().max()), float((yk - yp).abs().max()))
+    if getattr(op.spec, "head_tf32", False):
+        fwd_err = float(tf32_step_errors(op, model, inputs).max())
+    else:
+        fwd_err = max(float((xk - xp).abs().max()),
+                      float((yk - yp).abs().max()))
     loss_rel = abs(float(loss(xk, yk)) - float(loss(xp, yp))) / abs(
         float(loss(xp, yp)))
-    print(f"B1 vs plain: max|Δ(x_N, y_N)| {fwd_err:.3e} (tol {FWD_ABS_TOL}),"
+    what = ("Σ_i max|Δ(x, y)| step by step"
+            if getattr(op.spec, "head_tf32", False) else "max|Δ(x_N, y_N)|")
+    print(f"B1 vs plain: {what} {fwd_err:.3e} (tol {FWD_ABS_TOL}),"
           f" loss rel {loss_rel:.3e} (tol {LOSS_REL_TOL})")
     if not (math.isfinite(fwd_err) and fwd_err <= FWD_ABS_TOL
             and loss_rel <= LOSS_REL_TOL):
@@ -1998,6 +2101,319 @@ def dp_phases(counters) -> dict:
     return out, by_path
 
 
+def loss_and_grads(loss, params):
+    """(loss, gradients of the params' leaves) of one evaluation."""
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+
+    leaves = param_leaves(params)
+    value = loss(params)
+    return value.detach(), torch.autograd.grad(value, leaves)
+
+
+def peak_mib(fn):
+    """(fn()'s result, the card's peak allocated MiB while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**20
+
+
+def rel_errors(a, b) -> tuple:
+    """(loss relative error, gradient global-norm relative error) of the
+    (loss, gradients) pair ``a`` against ``b``."""
+    num = math.sqrt(sum(float(torch.sum((x.double() - y.double()) ** 2))
+                        for x, y in zip(a[1], b[1])))
+    den = math.sqrt(sum(float(torch.sum(y.double() ** 2)) for y in b[1]))
+    return abs(float(a[0]) - float(b[0])) / abs(float(b[0])), num / den
+
+
+def bitwise(a, b) -> bool:
+    return torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def fresh_params(solver):
+    from deepfbsdejsolvers_torch.nets.mlp import param_leaves
+    from deepfbsdejsolvers_torch.solvers.train import make_generator
+
+    params = solver.init_params(make_generator("cpu", SEED, 0))
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    return params
+
+
+def step_ms_of(solver, params, tag: int, reps: int = 3,
+               mfg: bool = False) -> float:
+    """Device time of one Adam step of ``solver`` at batch 2^17."""
+    from deepfbsdejsolvers_torch.solvers.train import (
+        make_adam, make_generator, make_step)
+
+    loss = (solver.build_losses(TRAIN_BATCH)["coupled"] if mfg
+            else solver.build_loss(TRAIN_BATCH))
+    step = make_step(loss, make_adam(params, 4e-4), params)
+    gen = make_generator("cuda", SEED, tag)
+    return cuda_ms(lambda: step(gen), reps=reps, warmup=1)
+
+
+def item13_phases(counters) -> tuple:
+    """Phase 10, the opt-in instruments (module docstring); returns (their
+    figures, the TF32 rows' checks, times and launches)."""
+    import contextlib
+    import io
+
+    from deepfbsdejsolvers_torch.experiments import bench as B
+    from deepfbsdejsolvers_torch.experiments import cli
+    from deepfbsdejsolvers_torch.models.merton import make_merton_default
+    from deepfbsdejsolvers_torch.models.mfg_smart_grid import (
+        make_mfg_default)
+    from deepfbsdejsolvers_torch.ops import rollout as R
+    from deepfbsdejsolvers_torch.solvers.mfg import MFG_SCHEMES, MFGSolver
+    from deepfbsdejsolvers_torch.solvers.pricing import PricingSolver
+    from deepfbsdejsolvers_torch.solvers.train import (
+        make_adam, make_generator, make_step)
+
+    t_start = time.perf_counter()
+    out = {"laps": {}}
+    model, kw = speed_config()
+    unfused = dict(kw, fused_rollout=False)
+    hid = (HIDDEN, HIDDEN)
+    last = [t_start]
+
+    def lap(label):
+        now = time.perf_counter()
+        out["laps"][label] = now - last[0]
+        last[0] = now
+
+    def at_noise(solver, tag):
+        noise = solver._prenoise(make_generator("cuda", SEED, tag),
+                                 TRAIN_BATCH, solver.noise_rows)
+        loss = solver.build_loss_from_noise(TRAIN_BATCH)
+        return lambda p: loss(p, noise)
+
+    # (a) the hand-written adjoint against autograd, one noise draw
+    auto = PricingSolver(model, "global", hidden=hid, **unfused)
+    adj = dataclasses.replace(auto, adjoint=True)
+    params = fresh_params(auto)
+    ra, peak_a = peak_mib(lambda: loss_and_grads(at_noise(auto, 90), params))
+    rj, peak_j = peak_mib(lambda: loss_and_grads(at_noise(adj, 90), params))
+    loss_rel, grad_rel = rel_errors(rj, ra)
+    ms = {k: step_ms_of(s, fresh_params(s), 91) for k, s in
+          (("autograd", auto), ("adjoint", adj))}
+    print(f"adjoint vs autograd (speed path, batch {TRAIN_BATCH}): loss rel "
+          f"{loss_rel:.3e} (tol {ADJOINT_LOSS_REL}), grads rel "
+          f"{grad_rel:.3e} (tol {ADJOINT_GRAD_REL}); step {ms['adjoint']:.3f}"
+          f" ms, peak {peak_j:.1f} MiB (autograd's {ms['autograd']:.3f} ms, "
+          f"{peak_a:.1f} MiB)")
+    if not (loss_rel <= ADJOINT_LOSS_REL and grad_rel <= ADJOINT_GRAD_REL):
+        fail("the hand-written adjoint disagrees with autograd")
+    out["adjoint"] = {"loss_rel": loss_rel, "grad_rel": grad_rel,
+                      "step_ms": ms, "peak_mib": {"autograd": peak_a,
+                                                  "adjoint": peak_j}}
+
+    lap("adjoint")
+
+    # (b) the chunked time loop: bit for bit, and its peak memory
+    mfg_model = dataclasses.replace(make_mfg_default(), jump_sampler="icdf")
+    chunk_paths = (
+        ("speed", PricingSolver(model, "global", hidden=hid, **unfused)),
+        ("parity", PricingSolver(make_merton_default(), "global", hidden=hid,
+                                 sweep_impl="pallas", device="cuda")),
+        ("mfg_global", MFGSolver(mfg_model, "global", device="cuda")))
+    out["scan_chunk"] = {}
+    for label, base in chunk_paths:
+        mfg = isinstance(base, MFGSolver)
+        rows, ref = {}, None
+        params = fresh_params(base)
+        for chunk in ITEM13_CHUNKS:
+            solver = dataclasses.replace(base, scan_chunk=chunk)
+            if mfg:
+                pair = solver.build_losses(TRAIN_BATCH)["coupled"]
+                loss = lambda p: pair(p, make_generator("cuda", SEED, 92))
+            else:
+                loss = at_noise(solver, 92)
+            for fn in counters.values():
+                fn.launches = 0
+            res, peak = peak_mib(lambda: loss_and_grads(loss, params))
+            ref = res if ref is None else ref
+            same = bitwise(res, ref)
+            launched = {k: fn.launches for k, fn in counters.items()
+                        if fn.launches}
+            ms = step_ms_of(solver, fresh_params(solver), 92, reps=2,
+                            mfg=mfg)
+            rows[chunk] = {"bit_identical": same, "peak_mib": peak,
+                           "step_ms": ms, "launches": launched}
+            print(f"scan_chunk {chunk} on {label}: loss {float(res[0])!r}, "
+                  f"bit-identical to the plain loop: {same}, peak "
+                  f"{peak:.1f} MiB, step {ms:.3f} ms, launches {launched}")
+            if not same:
+                fail(f"scan_chunk {chunk} on {label} left the plain loop")
+        out["scan_chunk"][label] = rows
+        del params, ref, res
+
+    lap("scan_chunk")
+
+    # (c) the table and head variants: one speed step each
+    base = PricingSolver(model, "global", hidden=hid, **unfused)
+    params = fresh_params(base)
+    ref = loss_and_grads(at_noise(base, 93), params)
+    variants = {
+        "hoist_gamma": dataclasses.replace(base, hoist_gamma=True),
+        "hoist_z=False": dataclasses.replace(base, hoist_z=False),
+        "price_mode=table": dataclasses.replace(
+            base, model=dataclasses.replace(model, price_mode="table")),
+        "bfloat16": dataclasses.replace(base, compute_dtype="bfloat16")}
+    out["variants"] = {}
+    for label, solver in variants.items():
+        res = loss_and_grads(at_noise(solver, 93), params)
+        loss_rel, grad_rel = rel_errors(res, ref)
+        finite = math.isfinite(float(res[0])) and all(
+            bool(torch.isfinite(g).all()) for g in res[1])
+        ms = step_ms_of(solver, fresh_params(solver), 94)
+        print(f"{label}: loss {float(res[0]):.6e} against the f32 "
+              f"default's {float(ref[0]):.6e}, rel {loss_rel:.3e} (tol "
+              f"{ITEM13_LOSS_REL[label]}), grads rel {grad_rel:.3e}, "
+              f"finite {finite}; step {ms:.3f} ms")
+        if not (finite and loss_rel <= ITEM13_LOSS_REL[label]):
+            fail(f"{label}: the speed step's loss left the f32 default's")
+        out["variants"][label] = {"loss_rel": loss_rel,
+                                  "grad_rel": grad_rel, "step_ms": ms}
+
+    lap("variants")
+
+    # (d) fuse_heads against the split heads, each MFG scheme
+    out["fuse_heads"] = {}
+    for scheme in MFG_SCHEMES:
+        row = {}
+        pair = {}
+        for fuse in (False, True):
+            solver = MFGSolver(mfg_model, scheme, fuse_heads=fuse,
+                               device="cuda")
+            params = fresh_params(solver)
+            loss = solver.build_losses(TRAIN_BATCH)["coupled"]
+            pair[fuse], peak = peak_mib(lambda: loss_and_grads(
+                lambda p: loss(p, make_generator("cuda", SEED, 95)), params))
+            step = make_step(loss, make_adam(params, 1e-3), params)
+            gen = make_generator("cuda", SEED, 96)
+            ms = cuda_ms(lambda: step(gen), reps=2, warmup=1)
+            # the ops of one scheme (the fused heads save the same ~3.0k
+            # a step in each; the profiler takes ~10 s a step here)
+            prof = (profile_steps(step, gen, ms, steps=1)
+                    if scheme == MFG_SCHEMES[0] else None)
+            row["fused" if fuse else "split"] = {
+                "step_ms": ms, "peak_mib": peak,
+                "device_ops": None if prof is None else prof[1]}
+        loss_rel, grad_rel = rel_errors(pair[True], pair[False])
+        row.update(loss_rel=loss_rel, grad_rel=grad_rel)
+        ops = {k: "" if r["device_ops"] is None
+               else f"{r['device_ops']:.0f} ops, "
+               for k, r in row.items() if k in ("fused", "split")}
+        print(f"fuse_heads on MFG {scheme}: loss rel {loss_rel:.3e} (tol "
+              f"{FUSE_LOSS_REL}), grads rel {grad_rel:.3e} (tol "
+              f"{FUSE_GRAD_REL}); step {row['fused']['step_ms']:.3f} ms, "
+              f"{ops['fused']}peak {row['fused']['peak_mib']:.1f} MiB "
+              f"(split {row['split']['step_ms']:.3f} ms, {ops['split']}"
+              f"{row['split']['peak_mib']:.1f} MiB)")
+        if not (loss_rel <= FUSE_LOSS_REL and grad_rel <= FUSE_GRAD_REL):
+            fail(f"fuse_heads on MFG {scheme} left the split heads")
+        out["fuse_heads"][scheme] = row
+
+    lap("fuse_heads")
+
+    # (e) the head-TF32 instances: checks, the fused speed path trained on
+    # them, and their times beside the FP32 instances'
+    tf32 = {"check": {}, "times": {}, "launches": {}}
+    for h in TF32_WIDTHS:
+        print(f"head TF32 check at H={h}, N={N_STEPS}, B={CHECK_BATCH}:")
+        m, inputs = rollout_case(model, kw, h, N_STEPS, CHECK_BATCH)
+        tf32["check"][h] = check_kernels(
+            R.FusedRolloutOp(m, h, n_pieces=PIECES,
+                             head_precision="default"), m, inputs)
+        del inputs
+    for h in (HIDDEN, 64):
+        solver = PricingSolver(model, "global", hidden=(h, h),
+                               fused_head_precision="default", **kw)
+        params = fresh_params(solver)
+        step = make_step(solver.build_loss(TRAIN_BATCH),
+                         make_adam(params, 4e-4), params)
+        gen = make_generator("cuda", SEED, 97)
+        for fn in counters.values():
+            fn.launches = 0
+            if hasattr(fn, "launches_tf32"):
+                fn.launches_tf32 = 0
+        losses = [float(step(gen)) for _ in range(2)]
+        launched = {k: fn.launches_tf32 for k, fn in counters.items()
+                    if getattr(fn, "launches_tf32", 0)}
+        print(f"fused speed path at hidden ({h}, {h}), head TF32, 2 steps: "
+              f"losses {losses}, TF32 launches {launched}")
+        want = {"B1": 2, "B2": 2} if h == HIDDEN else {"B1w": 2, "B2w": 2}
+        if launched != want or not all(map(math.isfinite, losses)):
+            fail(f"the head-TF32 speed path launched {launched}, the code "
+                 f"implies {want}")
+        tf32["launches"].update(launched)
+    for h in TF32_TIMED:
+        m, inputs = rollout_case(model, kw, h, N_STEPS, TRAIN_BATCH)
+        ops = {mode: R.FusedRolloutOp(m, h, n_pieces=PIECES,
+                                      head_precision=mode)
+               for mode in ("highest", "default")}
+        calls = {mode: kernel_calls(op, inputs) for mode, op in ops.items()}
+        turns = {mode: {"B1": [], "B2": []} for mode in ops}
+        for mode in ("highest", "default", "default", "highest"):
+            fwd, bwd = calls[mode]
+            turns[mode]["B1"].append(kernel_ms(fwd, reps=20))
+            turns[mode]["B2"].append(kernel_ms(bwd, reps=20))
+        plain = time_kernels(ops["default"], inputs, plain_reps=3)
+        tf32["times"][h] = {
+            k: {"highest_ms": turns["highest"][k],
+                "ms": turns["default"][k],
+                "plain_ms": plain[k]["plain_ms"],
+                "bound_ms": tc_floor(k, N_STEPS, TRAIN_BATCH, h)[0],
+                "bound_by": tc_floor(k, N_STEPS, TRAIN_BATCH, h)[1]}
+            for k in ("B1", "B2")}
+        for k, row in tf32["times"][h].items():
+            print(f"{k} at H={h}: head TF32 {row['ms'][0]:.4f} / "
+                  f"{row['ms'][1]:.4f} ms, FP32 {row['highest_ms'][0]:.4f} /"
+                  f" {row['highest_ms'][1]:.4f} ms in turns; plain (TF32) "
+                  f"{row['plain_ms']:.3f} ms; bound with the products at "
+                  f"the TF32 rate {row['bound_ms']:.4f} ms")
+        del inputs, calls
+
+    lap("head_tf32")
+
+    # (f) the bench's opt-in flags, launches exact
+    out["bench"] = {}
+    for label, entry, argv, want in ITEM13_BENCH:
+        for fn in counters.values():
+            fn.launches = 0
+        cut = [*argv, "--inner", "2", "--rounds", "1"]
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = (B.main(cut) if entry == "module"
+                  else cli.main(["bench", *cut]))
+        launched = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+        lines = buf.getvalue().strip().splitlines()
+        detail = [ln for ln in err.getvalue().splitlines()
+                  if ln.startswith("# detail:")]
+        print(f"bench {label}: `{' '.join(cut)}` exit {rc}, launches "
+              f"{launched}; {lines[-1] if lines else '(no output)'}")
+        if detail:
+            print(detail[-1][:300])
+        if rc != 0 or not lines or launched != want:
+            fail(f"bench {label}: exit {rc}, launches {launched}, the code "
+                 f"implies {want}")
+        rec = json.loads(lines[-1])
+        if not (math.isfinite(rec["value"]) and rec["value"] > 0):
+            fail(f"bench {label} printed {rec}")
+        out["bench"][label] = {"json": rec, "launches": launched}
+    lap("bench")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"opt-in instrument phases: {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["laps"].items())
+          + ")")
+    return out, tf32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2311,6 +2727,9 @@ def main() -> int:
     dp, dp_paths = dp_phases(counters)
     by_path.update(dp_paths)
 
+    # 10. the opt-in instruments
+    item13, tf32 = item13_phases(counters)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2457,6 +2876,32 @@ def main() -> int:
             record[-1]["f64_distances"] = {
                 "H": ROLLOUT_F64_CHECK[0], "N": ROLLOUT_F64_CHECK[1],
                 "B": ROLLOUT_F64_CHECK[2], **rollout_f64}
+    # the head-TF32 instances: each kernel's row at the hidden width it
+    # trained at (21 for B1/B2, 64 for B1w/B2w), its error from the check
+    # there (B1w/B2w: at hidden 64), every timed width under by_width
+    for k, src, h in (("B1", "rollout_fwd", HIDDEN), ("B2", "rollout_bwd",
+                                                      HIDDEN),
+                      ("B1w", "rollout_wide_fwd", 64),
+                      ("B2w", "rollout_wide_bwd", 64)):
+        kind = k[:2]
+        t = tf32["times"][h][kind]
+        err = tf32["check"][h][kind]
+        tpu = "pallas_rollout.py:311" if kind == "B1" else \
+            "pallas_rollout.py:352"
+        record.append({
+            "name": f"{k} {src} [head tf32]", "route": "cuda",
+            "source": f"deepfbsdejsolvers_torch/csrc/{src}.cu",
+            "replaces": f"deepfbsdejsolvers_tpu/ops/{tpu}",
+            "launches": tf32["launches"][k],
+            "launches_by_path": {f"speed_tf32_{h}": tf32["launches"][k]},
+            "max_abs_err": err["max_abs_err"], "rel_err": err["rel_err"],
+            "check": "pass", "ms": t["ms"][0], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "highest_ms": t["highest_ms"][0],
+            "turns_ms": {"tf32": t["ms"], "highest": t["highest_ms"]},
+            "shape": {"N": N_STEPS, "B": TRAIN_BATCH, "H": h, "P": PIECES},
+            "by_width": {w: tf32["times"][w][kind] for w in TF32_TIMED
+                         if (w in R.KERNEL_WIDTHS) == (k in ("B1", "B2"))}})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": record, "train_step_ms": step_ms,
                       "paths_steps_per_s": rate,
@@ -2468,7 +2913,7 @@ def main() -> int:
                       "wide_parity_train_step_ms": wide_parity_ms,
                       "f1": f1, "mfg": mfg,
                       "cli": cli_out, "bench": bench, "gate": gate,
-                      "dp": dp}))
+                      "dp": dp, "item13": item13}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,6 +46,13 @@
 // N·3·P·D) floats whatever B.  The Γ output bias never reaches the kernel:
 // the caller folds it into the compensator table's T_0 row and derives its
 // cotangent from that row's (ops/rollout.py).
+//
+// The template flag TF is the head-TF32 mode (rollout_common.cuh
+// tf32_round): every operand of the three H×H products is rounded to TF32,
+// h1 and W2 in the recomputed layer, W2 and dp2 in W2·dp2, h1 and dp2 in
+// h1ᵀ·dp2, the sums in f32 in the same order; db2 stays the sum of the
+// unrounded dp2 (the micro-tile that holds the ones row reads the raw
+// dp2).  Without it the kernel is the FP32 one, unchanged.
 #include "rollout_common.cuh"
 
 namespace rollout {
@@ -136,7 +143,7 @@ __device__ __forceinline__ float warp_sum8(float (&v)[8], int lane) {
   return s;
 }
 
-template <int H>
+template <int H, bool TF>
 __global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
 bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            const float* __restrict__ cc, const float* __restrict__ pc,
@@ -161,7 +168,7 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   float* st = sm + W::STG + warp * W::WARP_ROWS * LDJ;  // [row][path]
   float* tab = sm + W::TAB;  // [slot][warp][table][piece][coefficient]
 
-  load_head<H>(sm, w1, b1, w2, b2, w3);
+  load_head<H, TF>(sm, w1, b1, w2, b2, w3);
   st[W::ONES * LDJ + lane] = 1.0f;
   __syncthreads();
 
@@ -171,6 +178,8 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
             ks = lane / (T::NRT * T::NCT);
   const float* tile_l = st + rt * RM * LDJ + ks * W::KLEN;
   const float* tile_r = st + (W::R + ct * CM) * LDJ + ks * W::KLEN;
+  // the micro-tile row that is the ones row (db2), if this lane has it
+  const int ones_r = W::ONES - rt * RM;
   float acc[RM][CM];
 #pragma unroll
   for (int r = 0; r < RM; ++r)
@@ -220,9 +229,10 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
       yb = yb * c.growth;
 
       float h1[H];
-      first_layer<H>(sm, ti, x, jv, h1);
+      first_layer<H, TF>(sm, ti, x, jv, h1);
 #pragma unroll
-      for (int h = 0; h < H; ++h) st[h * LDJ + lane] = h1[h];
+      for (int h = 0; h < H; ++h)
+        st[h * LDJ + lane] = TF ? tf32_round(h1[h]) : h1[h];
       // h2 a quad at a time: dp2 = W3·ḡ·(1 − h2²), and ḡ·h2 summed over
       // the warp into dW3 eight outputs at a time
       float dp2[H];
@@ -234,7 +244,7 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
 #pragma unroll
         for (int q = 2 * g; q < 2 * g + 2 && q < L::QUADS; ++q) {
           float h2[4];
-          second_layer_quad<H>(sm, h1, q, h2);
+          second_layer_quad<H, TF>(sm, h1, q, h2);
           const float4 w3q = quad(sm + L::W3, q);
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
@@ -242,6 +252,7 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
             if (o < H) {
               dp2[o] = (lane_of(w3q, k) * gbar) * (1.0f - h2[k] * h2[k]);
               st[(W::R + o) * LDJ + lane] = dp2[o];
+              if constexpr (TF) dp2[o] = tf32_round(dp2[o]);
               gh2[o - 8 * g] = gbar * h2[k];
             }
           }
@@ -300,15 +311,34 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
           for (int r = 0; r < RM; ++r) lq[r] = quad(tile_l + r * LDJ, j);
 #pragma unroll
           for (int k = 0; k < CM; ++k) rq[k] = quad(tile_r + k * LDJ, j);
+          if constexpr (TF) {
+            // dp2 rounded for h1ᵀ·dp2, raw for the ones row's db2
+            float4 rr[CM];
 #pragma unroll
-          for (int r = 0; r < RM; ++r)
+            for (int k = 0; k < CM; ++k)
+              rr[k] = make_float4(tf32_round(rq[k].x), tf32_round(rq[k].y),
+                                  tf32_round(rq[k].z), tf32_round(rq[k].w));
 #pragma unroll
-            for (int k = 0; k < CM; ++k) {
-              acc[r][k] += lq[r].x * rq[k].x;
-              acc[r][k] += lq[r].y * rq[k].y;
-              acc[r][k] += lq[r].z * rq[k].z;
-              acc[r][k] += lq[r].w * rq[k].w;
-            }
+            for (int r = 0; r < RM; ++r)
+#pragma unroll
+              for (int k = 0; k < CM; ++k) {
+                const float4 v = r == ones_r ? rq[k] : rr[k];
+                acc[r][k] += lq[r].x * v.x;
+                acc[r][k] += lq[r].y * v.y;
+                acc[r][k] += lq[r].z * v.z;
+                acc[r][k] += lq[r].w * v.w;
+              }
+          } else {
+#pragma unroll
+            for (int r = 0; r < RM; ++r)
+#pragma unroll
+              for (int k = 0; k < CM; ++k) {
+                acc[r][k] += lq[r].x * rq[k].x;
+                acc[r][k] += lq[r].y * rq[k].y;
+                acc[r][k] += lq[r].z * rq[k].z;
+                acc[r][k] += lq[r].w * rq[k].w;
+              }
+          }
         }
       }
       // db1 and the dW1 rows of input lane
@@ -440,23 +470,24 @@ size_t smem_bytes(int p) {
 }
 
 // The shared memory above 48 KB needs the kernel's opt-in before a launch.
-template <int H>
+template <int H, bool TF>
 cudaError_t allow_smem(size_t smem) {
   return cudaFuncSetAttribute(
-      bwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bwd_kernel<H, TF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
 }
 
 template <int H>
 cudaError_t info_bwd(int p, int* smem, int* blocks_per_sm) {
   const size_t bytes = smem_bytes<H>(p);
   *smem = (int)bytes;
-  const cudaError_t err = allow_smem<H>(bytes);
+  const cudaError_t err = allow_smem<H, false>(bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, bwd_kernel<H>, BWD_THREADS, bytes);
+      blocks_per_sm, bwd_kernel<H, false>, BWD_THREADS, bytes);
 }
 
-template <int H>
+template <int H, bool TF>
 cudaError_t launch_bwd(const float* dw, const float* jr, const float* cc,
                        const float* pc, const float* zc, const float* lo,
                        const float* hi, const float* w1, const float* b1,
@@ -466,9 +497,9 @@ cudaError_t launch_bwd(const float* dw, const float* jr, const float* cc,
                        int batch, int p, int n_blocks, Consts c,
                        cudaStream_t stream) {
   const size_t smem = smem_bytes<H>(p);
-  cudaError_t err = allow_smem<H>(smem);
+  cudaError_t err = allow_smem<H, TF>(smem);
   if (err != cudaSuccess) return err;
-  bwd_kernel<H><<<n_blocks, BWD_THREADS, smem, stream>>>(
+  bwd_kernel<H, TF><<<n_blocks, BWD_THREADS, smem, stream>>>(
       dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2, w3, xs, ys, cxn, cyn, part,
       n, batch, p, c);
   err = cudaGetLastError();
@@ -483,9 +514,9 @@ cudaError_t launch_bwd(const float* dw, const float* jr, const float* cc,
 
 // C entry (bound with ctypes by ops/rollout.py b2_backward).  ``part`` holds
 // n_blocks partials of (H² + 6H + 1 + N·3·P·D) floats, n_blocks in
-// [1, ceil(batch / 128)]; ``out`` one of them, the sum.  Returns the
-// launches' cudaError_t; cudaErrorInvalidValue for a hidden width not built
-// here.
+// [1, ceil(batch / 128)]; ``out`` one of them, the sum.  head_tf32 != 0
+// selects the head-TF32 instance.  Returns the launches' cudaError_t;
+// cudaErrorInvalidValue for a hidden width not built here.
 extern "C" int rollout_bwd(const float* dw, const float* jr, const float* cc,
                            const float* pc, const float* zc, const float* lo,
                            const float* hi, const float* w1, const float* b1,
@@ -493,23 +524,26 @@ extern "C" int rollout_bwd(const float* dw, const float* jr, const float* cc,
                            const float* xs, const float* ys, const float* cxn,
                            const float* cyn, float* part, float* out, int n,
                            int batch, int n_pieces, int hidden, int n_blocks,
-                           float time_scale, float growth, float a_lin,
-                           float dt, float sigma, float drift, void* stream) {
+                           int head_tf32, float time_scale, float growth,
+                           float a_lin, float dt, float sigma, float drift,
+                           void* stream) {
   using namespace rollout;
   if (n < 1 || batch < 1 || n_pieces < 1 || n_blocks < 1 ||
       n_blocks > (batch + BWD_THREADS - 1) / BWD_THREADS)
     return (int)cudaErrorInvalidValue;
   const Consts c{time_scale, growth, a_lin, dt, sigma, drift};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (hidden) {
-    case 8:
-      return (int)launch_bwd<8>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                w3, xs, ys, cxn, cyn, part, out, n, batch,
-                                n_pieces, n_blocks, c, st);
-    case 21:
-      return (int)launch_bwd<21>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                 w3, xs, ys, cxn, cyn, part, out, n, batch,
-                                 n_pieces, n_blocks, c, st);
+  switch (hidden * 2 + (head_tf32 != 0)) {
+#define ROLLOUT_BWD_CASE(H, TF)                                              \
+  case H * 2 + TF:                                                           \
+    return (int)launch_bwd<H, TF>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2,    \
+                                  b2, w3, xs, ys, cxn, cyn, part, out, n,    \
+                                  batch, n_pieces, n_blocks, c, st);
+    ROLLOUT_BWD_CASE(8, false)
+    ROLLOUT_BWD_CASE(8, true)
+    ROLLOUT_BWD_CASE(21, false)
+    ROLLOUT_BWD_CASE(21, true)
+#undef ROLLOUT_BWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

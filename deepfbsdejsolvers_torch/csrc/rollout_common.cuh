@@ -20,6 +20,32 @@ namespace rollout {
 // Chebyshev coefficients per piece (the tables' degree is 7).
 constexpr int D = 8;
 
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero, in
+// two integer operations on finite x), as tc_split.cuh's split_tf32 forms
+// its hi part.  In the head-TF32 mode (the template flag TF of the kernels,
+// ops/rollout.py ``head_precision="default"``) every operand of the Γ head's
+// H×H products is rounded so before it is multiplied, and the sums stay in
+// f32: the products of two TF32 values are exact in f32, so a kernel and
+// its plain version differ only in their order of summation.
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// A first-layer unit's pre-activation t·wt + x·wx + j·wj + b in the
+// head-TF32 mode, where h1 is rounded to TF32 and a last-bit difference of
+// h1 becomes one of 2^-11: formed product by product and sum by sum, each
+// rounded and none fused, as the plain version forms it elementwise
+// (ops/rollout.py ``gamma_head``), so that both see the same h1 at the same
+// inputs.
+__device__ __forceinline__ float first_sum_tf32(float wt, float wx, float wj,
+                                                float b, float ti, float x,
+                                                float j) {
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(wt, ti), __fmul_rn(wx, x)),
+                __fmul_rn(wj, j)),
+      b);
+}
+
 // Model constants baked into both kernels (ops/rollout.py KernelSpec).
 struct Consts {
   float time_scale;  // time feature = step index * time_scale
@@ -104,7 +130,8 @@ __device__ __forceinline__ float clenshaw_deriv(const float* __restrict__ c,
 // (a broadcast): W2ᵀ·h1 walks the inputs h and reads row h's output quads,
 // W2·dp2 walks the outputs of row h, so one layout serves both products.
 // The output bias b3 is folded into the compensator table's T_0
-// coefficients by the caller.
+// coefficients by the caller.  With TF (the head-TF32 mode) W2 is rounded
+// to TF32 as it is loaded.
 template <int H>
 struct Head {
   static constexpr int HP = (H + 3) / 4 * 4;
@@ -117,7 +144,7 @@ struct Head {
   static constexpr int SIZE = W3 + HP;
 };
 
-template <int H>
+template <int H, bool TF = false>
 __device__ __forceinline__ void load_head(float* sw, const float* w1,
                                           const float* b1, const float* w2,
                                           const float* b2, const float* w3) {
@@ -128,7 +155,10 @@ __device__ __forceinline__ void load_head(float* sw, const float* w1,
     if (col < H) {
       if (row < 3) v = w1[row * H + col];
       else if (row == 3) v = b1[col];
-      else if (row < 4 + H) v = w2[(row - 4) * H + col];
+      else if (row < 4 + H) {
+        v = w2[(row - 4) * H + col];
+        if constexpr (TF) v = tf32_round(v);
+      }
       else if (row == 4 + H) v = b2[col];
       else v = w3[col];
     }
@@ -137,7 +167,7 @@ __device__ __forceinline__ void load_head(float* sw, const float* w1,
 }
 
 // The Γ head's first layer at (t_i, x, j): h1 = tanh(W1ᵀ [t_i, x, j] + b1).
-template <int H>
+template <int H, bool TF = false>
 __device__ __forceinline__ void first_layer(const float* sw, float ti,
                                             float x, float j, float* h1) {
   using L = Head<H>;
@@ -150,16 +180,20 @@ __device__ __forceinline__ void first_layer(const float* sw, float ti,
     for (int k = 0; k < 4; ++k) {
       const int h = 4 * q + k;
       if (h < H)
-        h1[h] = tanhf(lane_of(wt, k) * ti + lane_of(wx, k) * x +
-                      lane_of(wj, k) * j + lane_of(bq, k));
+        h1[h] = TF ? tanhf(first_sum_tf32(lane_of(wt, k), lane_of(wx, k),
+                                          lane_of(wj, k), lane_of(bq, k), ti,
+                                          x, j))
+                   : tanhf(lane_of(wt, k) * ti + lane_of(wx, k) * x +
+                           lane_of(wj, k) * j + lane_of(bq, k));
     }
   }
 }
 
 // Quad q of the second layer: h2[4q + k] = tanh(Σ_h h1[h]·W2[h, 4q + k] +
 // b2[4q + k]), each sum over h in order from a zero start, for the k with
-// 4q + k < H.  One float4 read of W2 feeds four FMAs.
-template <int H>
+// 4q + k < H.  One float4 read of W2 feeds four FMAs.  With TF each h1[h]
+// enters rounded to TF32 (W2 was rounded at its load), h1 itself unchanged.
+template <int H, bool TF = false>
 __device__ __forceinline__ void second_layer_quad(const float* sw,
                                                   const float* h1, int q,
                                                   float (&h2)[4]) {
@@ -168,9 +202,11 @@ __device__ __forceinline__ void second_layer_quad(const float* sw,
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     const float4 w = quad(sw + L::W2 + h * L::HP, q);
+    float hv = h1[h];
+    if constexpr (TF) hv = tf32_round(hv);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      if (4 * q + k < H) acc[k] += h1[h] * lane_of(w, k);
+      if (4 * q + k < H) acc[k] += hv * lane_of(w, k);
   }
   const float4 bq = quad(sw + L::B2, q);
 #pragma unroll

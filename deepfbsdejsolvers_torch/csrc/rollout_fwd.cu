@@ -26,13 +26,17 @@
 // communicate, so the kernel takes any N and any B: the ragged last block
 // simply has idle threads.  The TPU kernel's tile size, batch % TILE == 0
 // and its N·TILE VMEM envelope do not carry over.
+//
+// The template flag TF is the head-TF32 mode (rollout_common.cuh
+// tf32_round): h1 and W2 enter the H×H layer rounded to TF32, the sums in
+// f32 in the same order.  Without it the kernel is the FP32 one, unchanged.
 #include "rollout_common.cuh"
 
 namespace rollout {
 
 constexpr int FWD_THREADS = 128;
 
-template <int H>
+template <int H, bool TF>
 __global__ void __launch_bounds__(FWD_THREADS)
 fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            const float* __restrict__ cc, const float* __restrict__ pc,
@@ -46,7 +50,7 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            float x0) {
   using L = Head<H>;
   __shared__ __align__(16) float sw[L::SIZE];
-  load_head<H>(sw, w1, b1, w2, b2, w3);
+  load_head<H, TF>(sw, w1, b1, w2, b2, w3);
   __syncthreads();
   const int b = blockIdx.x * FWD_THREADS + threadIdx.x;
   if (b >= batch) return;
@@ -62,13 +66,13 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
     const Piece pk = locate(x, __ldg(lo + i), __ldg(hi + i), p);
     const size_t row = ((size_t)i * p + pk.k) * D;
     const float comp = clenshaw(cc + row, pk.t);
-    first_layer<H>(sw, c.time_scale * (float)i, x, jv, h1);
+    first_layer<H, TF>(sw, c.time_scale * (float)i, x, jv, h1);
     // Γ summed over the outputs in order as each quad of h2 is made
     float gam = 0.0f;
 #pragma unroll
     for (int q = 0; q < L::QUADS; ++q) {
       float h2[4];
-      second_layer_quad<H>(sw, h1, q, h2);
+      second_layer_quad<H, TF>(sw, h1, q, h2);
       const float4 w3 = quad(sw + L::W3, q);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -85,7 +89,7 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   yn[b] = y;
 }
 
-template <int H>
+template <int H, bool TF>
 cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
                        const float* pc, const float* zc, const float* lo,
                        const float* hi, const float* w1, const float* b1,
@@ -94,7 +98,7 @@ cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
                        float* ys, int n, int batch, int p, Consts c, float x0,
                        cudaStream_t stream) {
   const int blocks = (batch + FWD_THREADS - 1) / FWD_THREADS;
-  fwd_kernel<H><<<blocks, FWD_THREADS, 0, stream>>>(
+  fwd_kernel<H, TF><<<blocks, FWD_THREADS, 0, stream>>>(
       dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2, w3, y0, xn, yn, xs, ys, n,
       batch, p, c, x0);
   return cudaGetLastError();
@@ -103,32 +107,35 @@ cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
 }  // namespace rollout
 
 // C entry (bound with ctypes by ops/rollout.py b1_forward).  xs and ys may
-// be null: the residuals are then not written.  Returns the launch's
-// cudaError_t; cudaErrorInvalidValue for a hidden width not built here.
+// be null: the residuals are then not written.  head_tf32 != 0 selects the
+// head-TF32 instance.  Returns the launch's cudaError_t;
+// cudaErrorInvalidValue for a hidden width not built here.
 extern "C" int rollout_fwd(const float* dw, const float* jr, const float* cc,
                            const float* pc, const float* zc, const float* lo,
                            const float* hi, const float* w1, const float* b1,
                            const float* w2, const float* b2, const float* w3,
                            const float* y0, float* xn, float* yn, float* xs,
                            float* ys, int n, int batch, int n_pieces,
-                           int hidden, float time_scale, float growth,
-                           float a_lin, float dt, float sigma, float drift,
-                           float x0, void* stream) {
+                           int hidden, int head_tf32, float time_scale,
+                           float growth, float a_lin, float dt, float sigma,
+                           float drift, float x0, void* stream) {
   using namespace rollout;
   if ((xs == nullptr) != (ys == nullptr) || n < 1 || batch < 1 ||
       n_pieces < 1)
     return (int)cudaErrorInvalidValue;
   const Consts c{time_scale, growth, a_lin, dt, sigma, drift};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (hidden) {
-    case 8:
-      return (int)launch_fwd<8>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                w3, y0, xn, yn, xs, ys, n, batch, n_pieces,
-                                c, x0, st);
-    case 21:
-      return (int)launch_fwd<21>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                 w3, y0, xn, yn, xs, ys, n, batch, n_pieces,
-                                 c, x0, st);
+  switch (hidden * 2 + (head_tf32 != 0)) {
+#define ROLLOUT_FWD_CASE(H, TF)                                              \
+  case H * 2 + TF:                                                           \
+    return (int)launch_fwd<H, TF>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2,    \
+                                  b2, w3, y0, xn, yn, xs, ys, n, batch,      \
+                                  n_pieces, c, x0, st);
+    ROLLOUT_FWD_CASE(8, false)
+    ROLLOUT_FWD_CASE(8, true)
+    ROLLOUT_FWD_CASE(21, false)
+    ROLLOUT_FWD_CASE(21, true)
+#undef ROLLOUT_FWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

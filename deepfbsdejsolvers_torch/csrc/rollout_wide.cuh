@@ -107,11 +107,32 @@ __device__ __forceinline__ void load_first_layer(float* dst,
 }
 
 // One first-layer unit, tanh(t·W1[t] + x·W1[x] + J·W1[J] + b1), in the sum
-// order of rollout::first_layer.
+// order of rollout::first_layer (with TF, of rollout::first_sum_tf32).
+template <bool TF>
 __device__ __forceinline__ float first_unit(float wt, float wx, float wj,
                                             float b, float ti, float x,
                                             float j) {
-  return tanhf(wt * ti + wx * x + wj * j + b);
+  if constexpr (TF)
+    return tanhf(rollout::first_sum_tf32(wt, wx, wj, b, ti, x, j));
+  else
+    return tanhf(wt * ti + wx * x + wj * j + b);
+}
+
+// One product of B2w into its accumulators: the split product a·b
+// (tc::mma_split: hi·hi into big, the cross terms into small), or in the
+// head-TF32 mode (TF) its hi·hi term alone: one TF32 pass on operands
+// rounded to TF32, f32 sums.
+template <bool TF>
+__device__ __forceinline__ void head_product(float (&big)[4],
+                                             float (&small)[4],
+                                             const float (&ah)[4],
+                                             const float (&al)[4],
+                                             const float (&bh)[2],
+                                             const float (&bl)[2]) {
+  if constexpr (TF)
+    tc::mma_tf32(big, ah, bh);
+  else
+    tc::mma_split(big, small, ah, al, bh, bl);
 }
 
 // v of paths g and g + 8 of lane ``lane``'s row group (B2w's layout): the

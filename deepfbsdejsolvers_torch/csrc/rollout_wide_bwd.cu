@@ -20,6 +20,11 @@
 // trajectories whose shared errors the loss's cancelling gradient would
 // magnify, and hold the checks in split TF32.
 //
+// The template flag TF is the head-TF32 mode: each of the three products
+// runs its hi·hi term alone (rollout_wide.cuh head_product), h1, dp2 and W2
+// rounded to TF32, f32 sums; db2 stays the sum of the unrounded dp2.
+// Without it the kernel is the split-TF32 one, unchanged.
+//
 // Design: a fixed number of blocks (ops/rollout.py b2_wide_blocks, as many
 // as are resident on the card, independent of B) each walk their 128-path
 // tiles in order, eight warps of one m16 tile of 16 paths each, the
@@ -121,7 +126,7 @@ __device__ __forceinline__ void a_from_rows(const float* rows, int s0, int s1,
 
 // Two blocks an SM where their shared memory allows it (HP <= 64): the
 // registers are capped to let them in.
-template <int HP>
+template <int HP, bool TF>
 __global__ void __launch_bounds__(THREADS, HP <= 64 ? 2 : 1)
 bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            const float* __restrict__ cc, const float* __restrict__ pc,
@@ -235,8 +240,9 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           *reinterpret_cast<float2*>(h1w + (r ? s1 : s0) + 8 * k) =
-              make_float2(first_unit(p.x, p.z, q.x, q.z, ti, xe[r], je[r]),
-                          first_unit(p.y, p.w, q.y, q.w, ti, xe[r], je[r]));
+              make_float2(
+                  first_unit<TF>(p.x, p.z, q.x, q.z, ti, xe[r], je[r]),
+                  first_unit<TF>(p.y, p.w, q.y, q.w, ti, xe[r], je[r]));
       }
 
       // Z = h1·W2 + b2 by groups of NG n-tiles; h2, dp2, and the sums of
@@ -262,7 +268,7 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
             float bh[2], bl[2];
             split_tf32(w.x, bh[0], bl[0]);
             split_tf32(w.y, bh[1], bl[1]);
-            tc::mma_split(zb[q], zs[q], ah, al, bh, bl);
+            head_product<TF>(zb[q], zs[q], ah, al, bh, bl);
           }
         }
         // red: dW3 at units u, u + 1 of each n-tile, then db2 likewise
@@ -322,7 +328,7 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
             float bh[2], bl[2];
             split_tf32(blk[os0], bh[0], bl[0]);
             split_tf32(blk[os1], bh[1], bl[1]);
-            tc::mma_split(sb[q], ss[q], ah, al, bh, bl);
+            head_product<TF>(sb[q], ss[q], ah, al, bh, bl);
           }
         }
         // red: entry (2q + j)·3 + s, s = db1, x·dp1, J·dp1 at unit u + j
@@ -414,7 +420,8 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
             split_tf32(dr[4 * LDS + c0], bh[1], bl[1]);
 #pragma unroll
             for (int i2 = 0; i2 < TM; ++i2)
-              tc::mma_split(f[i2][j], f[i2][j], ah[i2], al[i2], bh, bl);
+              head_product<TF>(f[i2][j], f[i2][j], ah[i2], al[i2], bh,
+                               bl);
           }
         }
 #pragma unroll
@@ -513,9 +520,9 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
 }
 
 // The shared memory above 48 KB needs the kernel's opt-in before a launch.
-template <int HP>
+template <int HP, bool TF>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(bwd_kernel<HP>,
+  return cudaFuncSetAttribute(bwd_kernel<HP, TF>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)(sizeof(float) * Bwd<HP>::SIZE));
 }
@@ -523,13 +530,13 @@ cudaError_t allow_smem() {
 template <int HP>
 cudaError_t info_bwd(int* smem, int* blocks_per_sm) {
   *smem = (int)(sizeof(float) * Bwd<HP>::SIZE);
-  const cudaError_t err = allow_smem<HP>();
+  const cudaError_t err = allow_smem<HP, false>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, bwd_kernel<HP>, THREADS, *smem);
+      blocks_per_sm, bwd_kernel<HP, false>, THREADS, *smem);
 }
 
-template <int HP>
+template <int HP, bool TF>
 cudaError_t launch_bwd(const float* dw, const float* jr, const float* cc,
                        const float* pc, const float* zc, const float* lo,
                        const float* hi, const float* w1, const float* b1,
@@ -540,9 +547,9 @@ cudaError_t launch_bwd(const float* dw, const float* jr, const float* cc,
                        cudaStream_t stream) {
   if (n_blocks > (batch + Bwd<HP>::TILE - 1) / Bwd<HP>::TILE)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<HP>();
+  cudaError_t err = allow_smem<HP, TF>();
   if (err != cudaSuccess) return err;
-  bwd_kernel<HP><<<n_blocks, THREADS, sizeof(float) * Bwd<HP>::SIZE,
+  bwd_kernel<HP, TF><<<n_blocks, THREADS, sizeof(float) * Bwd<HP>::SIZE,
                    stream>>>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2, w3,
                              xs, ys, cxn, cyn, part, n, batch, np, h, c);
   err = cudaGetLastError();
@@ -560,9 +567,9 @@ cudaError_t launch_bwd(const float* dw, const float* jr, const float* cc,
 // C entry (bound with ctypes by ops/rollout.py b2_wide_backward): the
 // arguments of rollout_bwd, r·dt in the place of its 1 + r·dt.  ``part``
 // holds n_blocks partials of (H² + 6H + 1 + N·3·P·D) floats, n_blocks in
-// [1, number of 128-path tiles]; ``out`` one of them, the sum.  Returns the
-// launches' cudaError_t; cudaErrorInvalidValue for 8, 21 and widths outside
-// 1..128.
+// [1, number of 128-path tiles]; ``out`` one of them, the sum.  head_tf32
+// != 0 selects the head-TF32 instance.  Returns the launches' cudaError_t;
+// cudaErrorInvalidValue for 8, 21 and widths outside 1..128.
 extern "C" int rollout_wide_bwd(const float* dw, const float* jr,
                                 const float* cc, const float* pc,
                                 const float* zc, const float* lo,
@@ -573,27 +580,27 @@ extern "C" int rollout_wide_bwd(const float* dw, const float* jr,
                                 const float* cxn, const float* cyn,
                                 float* part, float* out, int n, int batch,
                                 int n_pieces, int hidden, int n_blocks,
-                                float time_scale, float r_dt, float a_lin,
-                                float dt, float sigma, float drift,
-                                void* stream) {
+                                int head_tf32, float time_scale, float r_dt,
+                                float a_lin, float dt, float sigma,
+                                float drift, void* stream) {
   using namespace rollout_wide;
   if (n < 1 || batch < 1 || n_pieces < 1 || n_blocks < 1)
     return (int)cudaErrorInvalidValue;
   const Consts c{time_scale, r_dt, a_lin, dt, sigma, drift};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (wide_width_class(hidden)) {
-    case 32:
-      return (int)launch_bwd<32>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                 w3, xs, ys, cxn, cyn, part, out, n, batch,
-                                 n_pieces, hidden, n_blocks, c, st);
-    case 64:
-      return (int)launch_bwd<64>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                 w3, xs, ys, cxn, cyn, part, out, n, batch,
-                                 n_pieces, hidden, n_blocks, c, st);
-    case 128:
-      return (int)launch_bwd<128>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                  w3, xs, ys, cxn, cyn, part, out, n, batch,
-                                  n_pieces, hidden, n_blocks, c, st);
+  switch (wide_width_class(hidden) * 2 + (head_tf32 != 0)) {
+#define ROLLOUT_WIDE_BWD_CASE(HP, TF)                                        \
+  case HP * 2 + TF:                                                          \
+    return (int)launch_bwd<HP, TF>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2,   \
+                                   b2, w3, xs, ys, cxn, cyn, part, out, n,   \
+                                   batch, n_pieces, hidden, n_blocks, c, st);
+    ROLLOUT_WIDE_BWD_CASE(32, false)
+    ROLLOUT_WIDE_BWD_CASE(32, true)
+    ROLLOUT_WIDE_BWD_CASE(64, false)
+    ROLLOUT_WIDE_BWD_CASE(64, true)
+    ROLLOUT_WIDE_BWD_CASE(128, false)
+    ROLLOUT_WIDE_BWD_CASE(128, true)
+#undef ROLLOUT_WIDE_BWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -40,6 +40,11 @@
 // __syncwarp, so the kernel
 // takes any N and B: the ragged last block's idle paths compute on zero
 // noise and write nothing.
+//
+// The template flag TF is the head-TF32 mode (rollout_common.cuh
+// tf32_round): h1 is staged and W2 loaded rounded to TF32, and the FP32
+// loop sums their exact products in the same order.  Without it the kernel
+// is the FP32 one, unchanged.
 #include "rollout_wide.cuh"
 
 namespace rollout_wide {
@@ -101,7 +106,7 @@ __device__ __forceinline__ void gather_paths(float v, float (&out)[P]) {
 // h1[p][u] = tanh(t·W1[t, k] + x_p·W1[x, k] + J_p·W1[J, k] + b1[k]) at the
 // lane's units, in the sum order of rollout::first_layer, written to the
 // warp's staging rows ``stage`` (P rows of HP); returns them too.
-template <int HP>
+template <int HP, bool TF>
 __device__ __forceinline__ void first_layer(
     const Units<Lanes<HP>::U>& w, float ti, const float (&x)[Lanes<HP>::P],
     const float (&j)[Lanes<HP>::P], int lane,
@@ -111,9 +116,13 @@ __device__ __forceinline__ void first_layer(
   for (int u = 0; u < L::U; ++u)
 #pragma unroll
     for (int p = 0; p < L::P; ++p) {
-      h1[p][u] = tanhf(w.wt[u] * ti + w.wx[u] * x[p] + w.wj[u] * j[p] +
-                       w.b1[u]);
-      stage[p * HP + lane + WARP * u] = h1[p][u];
+      h1[p][u] = TF ? tanhf(rollout::first_sum_tf32(w.wt[u], w.wx[u],
+                                                     w.wj[u], w.b1[u], ti,
+                                                     x[p], j[p]))
+                    : tanhf(w.wt[u] * ti + w.wx[u] * x[p] + w.wj[u] * j[p] +
+                            w.b1[u]);
+      stage[p * HP + lane + WARP * u] = TF ? rollout::tf32_round(h1[p][u])
+                                           : h1[p][u];
     }
 }
 
@@ -155,7 +164,7 @@ __device__ __forceinline__ void second_layer(
 
 // W2 and b2 of width h into shared memory in ``Lanes``' layout, zero past
 // h.
-template <int HP>
+template <int HP, bool TF>
 __device__ __forceinline__ void load_weights(float* sm,
                                              const float* __restrict__ w2,
                                              const float* __restrict__ b2,
@@ -163,8 +172,8 @@ __device__ __forceinline__ void load_weights(float* sm,
   using L = Lanes<HP>;
   for (int q = threadIdx.x; q < HP * HP; q += blockDim.x) {
     const int row = q / HP, col = q % HP;
-    sm[L::W2 + row * L::LDW + col] =
-        (row < h && col < h) ? __ldg(w2 + row * h + col) : 0.0f;
+    const float v = (row < h && col < h) ? __ldg(w2 + row * h + col) : 0.0f;
+    sm[L::W2 + row * L::LDW + col] = TF ? rollout::tf32_round(v) : v;
   }
   for (int q = threadIdx.x; q < HP; q += blockDim.x)
     sm[L::B2 + q] = q < h ? __ldg(b2 + q) : 0.0f;
@@ -179,7 +188,7 @@ struct Fwd {
   static constexpr int SIZE = STAGE + WARPS * Lanes<HP>::P * HP;
 };
 
-template <int HP>
+template <int HP, bool TF>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            const float* __restrict__ cc, const float* __restrict__ pc,
@@ -201,7 +210,7 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   const bool active = b < batch;
   using F = Fwd<HP>;
   float* stage = sm + F::STAGE + warp * P * HP;
-  load_weights<HP>(sm, w2, b2, h);
+  load_weights<HP, TF>(sm, w2, b2, h);
   for (int q = threadIdx.x; q < HP; q += THREADS)
     sm[F::W3 + q] = q < h ? __ldg(w3 + q) : 0.0f;
   Units<U> wu;
@@ -226,7 +235,7 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
     float xp[P], jp[P], h1[P][U], z[P][U];
     gather_paths<P>(x, xp);
     gather_paths<P>(jv, jp);
-    first_layer<HP>(wu, c.time_scale * (float)i, xp, jp, lane, h1, stage);
+    first_layer<HP, TF>(wu, c.time_scale * (float)i, xp, jp, lane, h1, stage);
     __syncwarp();
     second_layer<HP>(sm, wu, lane, stage, z);
     __syncwarp();  // every lane has read h1: the rows take h2
@@ -264,14 +273,14 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
 }
 
 // The shared memory above 48 KB needs the kernel's opt-in before a launch.
-template <int HP>
+template <int HP, bool TF>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(fwd_kernel<HP>,
+  return cudaFuncSetAttribute(fwd_kernel<HP, TF>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)(sizeof(float) * Fwd<HP>::SIZE));
 }
 
-template <int HP>
+template <int HP, bool TF>
 cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
                        const float* pc, const float* zc, const float* lo,
                        const float* hi, const float* w1, const float* b1,
@@ -279,10 +288,10 @@ cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
                        const float* y0, float* xn, float* yn, float* xs,
                        float* ys, int n, int batch, int np, int h, Consts c,
                        float x0, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<HP>();
+  const cudaError_t err = allow_smem<HP, TF>();
   if (err != cudaSuccess) return err;
   const int blocks = (batch + Lanes<HP>::TILE - 1) / Lanes<HP>::TILE;
-  fwd_kernel<HP><<<blocks, THREADS, sizeof(float) * Fwd<HP>::SIZE,
+  fwd_kernel<HP, TF><<<blocks, THREADS, sizeof(float) * Fwd<HP>::SIZE,
                    stream>>>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2, w3,
                              y0, xn, yn, xs, ys, n, batch, np, h, c, x0);
   return cudaGetLastError();
@@ -291,10 +300,10 @@ cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
 template <int HP>
 cudaError_t info_fwd(int* smem, int* blocks_per_sm) {
   *smem = (int)(sizeof(float) * Fwd<HP>::SIZE);
-  const cudaError_t err = allow_smem<HP>();
+  const cudaError_t err = allow_smem<HP, false>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fwd_kernel<HP>, THREADS, *smem);
+      blocks_per_sm, fwd_kernel<HP, false>, THREADS, *smem);
 }
 
 }  // namespace rollout_wide
@@ -311,9 +320,9 @@ extern "C" int rollout_wide_fwd(const float* dw, const float* jr,
                                 const float* b2, const float* w3,
                                 const float* y0, float* xn, float* yn,
                                 float* xs, float* ys, int n, int batch,
-                                int n_pieces, int hidden, float time_scale,
-                                float r_dt, float a_lin, float dt,
-                                float sigma, float drift, float x0,
+                                int n_pieces, int hidden, int head_tf32,
+                                float time_scale, float r_dt, float a_lin,
+                                float dt, float sigma, float drift, float x0,
                                 void* stream) {
   using namespace rollout_wide;
   if ((xs == nullptr) != (ys == nullptr) || n < 1 || batch < 1 ||
@@ -321,19 +330,19 @@ extern "C" int rollout_wide_fwd(const float* dw, const float* jr,
     return (int)cudaErrorInvalidValue;
   const Consts c{time_scale, r_dt, a_lin, dt, sigma, drift};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (wide_width_class(hidden)) {
-    case 32:
-      return (int)launch_fwd<32>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                 w3, y0, xn, yn, xs, ys, n, batch, n_pieces,
-                                 hidden, c, x0, st);
-    case 64:
-      return (int)launch_fwd<64>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                 w3, y0, xn, yn, xs, ys, n, batch, n_pieces,
-                                 hidden, c, x0, st);
-    case 128:
-      return (int)launch_fwd<128>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                                  w3, y0, xn, yn, xs, ys, n, batch, n_pieces,
-                                  hidden, c, x0, st);
+  switch (wide_width_class(hidden) * 2 + (head_tf32 != 0)) {
+#define ROLLOUT_WIDE_FWD_CASE(HP, TF)                                        \
+  case HP * 2 + TF:                                                          \
+    return (int)launch_fwd<HP, TF>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2,   \
+                                   b2, w3, y0, xn, yn, xs, ys, n, batch,     \
+                                   n_pieces, hidden, c, x0, st);
+    ROLLOUT_WIDE_FWD_CASE(32, false)
+    ROLLOUT_WIDE_FWD_CASE(32, true)
+    ROLLOUT_WIDE_FWD_CASE(64, false)
+    ROLLOUT_WIDE_FWD_CASE(64, true)
+    ROLLOUT_WIDE_FWD_CASE(128, false)
+    ROLLOUT_WIDE_FWD_CASE(128, true)
+#undef ROLLOUT_WIDE_FWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

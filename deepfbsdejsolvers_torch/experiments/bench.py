@@ -4,6 +4,7 @@ the card.
     python -m deepfbsdejsolvers_torch.experiments.bench [--batch 131072]
         [--inner 10] [--rounds 3] [--model merton|vg|mfg] [--parity]
         [--compensator quadrature|mc] [--sweep xla|pallas] [--fused]
+        [--fusedPrecision default|highest] [--adjoint] [--rng threefry|rbg]
         [--scheme global|...] [--device cuda|cpu]
 
 (also ``python -m deepfbsdejsolvers_torch bench ...``, the CLI's
@@ -17,8 +18,21 @@ compensator swept at every path; ``--sweep`` defaults to the kernels B3/B4,
 Variance-Gamma speed and parity configurations, or the smart-grid MFG
 model's global scheme with its coupled loss (the icdf Cox sampler unless
 ``--parity``), and any of the seven pricing schemes through ``--scheme``;
-Adam at 4e-4, 1e-3 for the MFG model.  The port has no scan, so the scan
-chunk ``bench.py`` sets is taken and ignored.
+Adam at 4e-4, 1e-3 for the MFG model.  The speed cells keep ``bench.py``'s
+scan chunks (2, and 16 for the MFG model: ``ops/scan.py``).  ``--adjoint``
+trains the Merton speed cell through the hand-written adjoint
+(``solvers/adjoint.py``), ``--fusedPrecision`` sets the fused rollout's
+``fused_precision`` as ``bench.py`` does (its select dots; both values give
+the port's kernels the same bits).
+
+``--rng`` picks ``bench.py``'s key implementation.  The port draws from
+PyTorch's generator for both values (on the card Philox4x32-10, on the CPU
+the Mersenne twister); the ``# detail:`` record names the value given and
+the generator used.  ``rbg`` keys in the JAX package run XLA's
+RngBitGenerator with the algorithm DEFAULT, "the platform's default
+algorithm" (``jax/_src/lax/lax.py``); on the CPU the installed jax 0.9.0
+gives Philox's bits for it, and which algorithm its GPU backend takes is
+compiled into jaxlib and not read here.
 
 ``measure`` follows ``bench.py``'s protocol: two warm-up epochs of
 ``inner`` Adam steps on the noise of generators (1, 1000 + w), then
@@ -32,12 +46,9 @@ package on a CPU, ``TFRT_CPU_0`` at batch 8192, not a card number) for the
 Merton global cell, else null.  A ``# detail:`` line on standard error
 gives the epochs' seconds, the final loss and the device's name.
 
-Refused with exit status 2: ``--adjoint`` and ``--rng rbg`` (not ported,
-ROADMAP Queue 1, item 13), ``--fusedPrecision default`` (the TPU kernels'
-bf16-pass selects; the port's kernels select in exact f32, which is what
-``highest`` means, so ``highest`` is taken), ``--anchor`` (it would
-rewrite ``bench_baseline.json``), and a run on the card without one
-unless ``--device cpu``.  ``bench.py``'s watchdog, which re-runs a stalled
+Refused with exit status 2: ``--anchor`` (it would rewrite
+``bench_baseline.json``), and a run on the card without one unless
+``--device cpu``.  ``bench.py``'s watchdog, which re-runs a stalled
 TPU client, has no counterpart here.
 """
 
@@ -63,7 +74,8 @@ UNIT_STEPS = {"merton": 50, "vg": 30, "mfg": 96}
 def build(batch: int, compensator: str, parity: bool,
           model_name: str = "merton", sweep: Optional[str] = None,
           fused: bool = False, scheme: str = "global",
-          device: str = "cuda"):
+          device: str = "cuda", adjoint: bool = False,
+          fused_precision: Optional[str] = None):
     """(model, solver, params, optimizer, loss_fn) of one cell of
     ``bench.py``'s ``build``, on ``device``: params drawn from generator
     (0, 0), ``loss_fn(params, generator)`` at ``batch``."""
@@ -123,7 +135,8 @@ def build(batch: int, compensator: str, parity: bool,
             compensator=CompensatorSpec(kind=compensator,
                                         x_interp="chebyshev", n_cheb=64),
             hoist=True, hoist_interp="piecewise", scan_chunk=2,
-            sweep_impl=sweep or "xla", fused_rollout=fused, device=device)
+            sweep_impl=sweep or "xla", adjoint=adjoint, fused_rollout=fused,
+            fused_precision=fused_precision, device=device)
     params = solver.init_params(make_generator("cpu", 0, 0))
     for t in param_leaves(params):
         t.requires_grad_(True)
@@ -134,18 +147,28 @@ def build(batch: int, compensator: str, parity: bool,
     return model, solver, params, make_adam(params, lrate), loss_fn
 
 
+def generator_name(device) -> str:
+    """The algorithm of PyTorch's generator on ``device``."""
+    return ("Philox4x32-10" if torch.device(device).type == "cuda"
+            else "mt19937")
+
+
 def measure(batch: int, inner: int, rounds: int, compensator: str,
             parity: bool = False, model_name: str = "merton",
             sweep: Optional[str] = None, fused: bool = False,
-            scheme: str = "global", device: str = "cuda") -> dict:
+            scheme: str = "global", device: str = "cuda",
+            adjoint: bool = False, fused_precision: Optional[str] = None,
+            rng: str = "threefry") -> dict:
     """``bench.py``'s protocol on ``device``: 2 warm-up epochs, then
     ``rounds`` timed epochs of ``inner`` Adam steps; the median epoch's
-    rates, every epoch's seconds, the last step's loss and the device."""
+    rates, every epoch's seconds, the last step's loss, the device, and the
+    ``rng`` asked for beside the generator drawn from."""
     from deepfbsdejsolvers_torch.solvers.train import (
         make_generator, make_step)
 
     model, _, params, optimizer, loss_fn = build(
-        batch, compensator, parity, model_name, sweep, fused, scheme, device)
+        batch, compensator, parity, model_name, sweep, fused, scheme, device,
+        adjoint, fused_precision)
     step = make_step(loss_fn, optimizer, params)
     dev = torch.device(device)
     wait = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
@@ -175,23 +198,13 @@ def measure(batch: int, inner: int, rounds: int, compensator: str,
         "final_loss": float(loss),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
+        "rng": rng,
+        "generator": generator_name(dev),
     }
 
 
-def refusal(adjoint: bool = False, rng: str = "threefry",
-            fused_precision: Optional[str] = None,
-            anchor: bool = False) -> Optional[str]:
+def refusal(anchor: bool = False) -> Optional[str]:
     """Why the port refuses these ``bench.py`` options, or None."""
-    if adjoint:
-        return ("--adjoint: the hand-written adjoint is not ported "
-                "(ROADMAP Queue 1, item 13)")
-    if rng != "threefry":
-        return (f"--rng {rng}: the TPU's hardware generator is not ported "
-                "(ROADMAP Queue 1, item 13)")
-    if fused_precision == "default":
-        return ("--fusedPrecision default: the TPU kernels' bf16-pass "
-                "selects; the port's kernels select in exact f32 "
-                "('highest')")
     if anchor:
         return ("--anchor: bench_baseline.json is the JAX package's CPU "
                 "anchor and is not rewritten")
@@ -199,11 +212,11 @@ def refusal(adjoint: bool = False, rng: str = "threefry",
 
 
 def usage_error(parity: bool, model: str, fused: bool, scheme: str,
-                sweep: Optional[str],
-                fused_precision: Optional[str]) -> Optional[str]:
-    """``bench.py``'s own argument errors, and the port's one more (the
-    fused rollout runs the global scheme only: the port refuses where the
-    JAX package falls back), or None."""
+                sweep: Optional[str], fused_precision: Optional[str],
+                adjoint: bool = False) -> Optional[str]:
+    """``bench.py``'s own argument errors, and the port's two more (the
+    fused rollout and the adjoint run the global scheme only: the port
+    refuses where the JAX package falls back), or None."""
     if fused and (parity or model != "merton"):
         return ("--fused applies only to the merton speed config (no "
                 "--parity, --model merton)")
@@ -211,6 +224,11 @@ def usage_error(parity: bool, model: str, fused: bool, scheme: str,
         return "--fused applies only to the global scheme"
     if fused_precision and not fused:
         return "--fusedPrecision requires --fused"
+    if adjoint and (parity or model != "merton"):
+        return ("--adjoint applies only to the merton speed config (no "
+                "--parity, --model merton)")
+    if adjoint and scheme != "global":
+        return "--adjoint applies only to the global scheme"
     if sweep and model in ("vg", "mfg"):
         return ("--sweep applies only to --model merton (the vg/mfg "
                 "builders take no sweep implementation)")
@@ -222,7 +240,9 @@ def usage_error(parity: bool, model: str, fused: bool, scheme: str,
 
 def run(batch: int, inner: int, rounds: int, compensator: str,
         parity: bool, model: str, sweep: Optional[str], fused: bool,
-        scheme: str, device: str) -> int:
+        scheme: str, device: str, adjoint: bool = False,
+        fused_precision: Optional[str] = None,
+        rng: str = "threefry") -> int:
     """Measure one cell and print ``bench.py``'s JSON line (and the
     ``# detail:`` line on standard error); returns the exit status: 2
     without a card unless ``device`` is the CPU."""
@@ -231,7 +251,7 @@ def run(batch: int, inner: int, rounds: int, compensator: str,
               file=sys.stderr)
         return 2
     res = measure(batch, inner, rounds, compensator, parity, model, sweep,
-                  fused, scheme, device)
+                  fused, scheme, device, adjoint, fused_precision, rng)
     vs = None
     if model == "merton" and scheme == "global" and ANCHOR_FILE.is_file():
         anchor = json.loads(ANCHOR_FILE.read_text())
@@ -273,18 +293,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels B3/B4, 'xla' the plain sweep (default: "
                         "pallas on the card, xla on the CPU)")
     p.add_argument("--rng", choices=["threefry", "rbg"], default="threefry",
-                   help="PRNG implementation (rbg is refused: not ported)")
+                   help="bench.py's key implementation; the port draws "
+                        "from PyTorch's generator for both")
     p.add_argument("--adjoint", action=argparse.BooleanOptionalAction,
                    default=False,
-                   help="hand-written adjoint (refused: not ported)")
+                   help="hand-written adjoint for the merton speed config "
+                        "(solvers/adjoint.py)")
     p.add_argument("--fused", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="fused whole-rollout kernels B1/B2 for the merton "
                         "speed config")
     p.add_argument("--fusedPrecision", choices=["default", "highest"],
                    default=None,
-                   help="select precision for --fused ('default' is "
-                        "refused: the kernels select in exact f32)")
+                   help="select precision for --fused (the kernels select "
+                        "by index: both give the same bits)")
     p.add_argument("--anchor", action="store_true",
                    help="measure the CPU anchor (refused: "
                         "bench_baseline.json is read only)")
@@ -297,16 +319,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     err = usage_error(args.parity, args.model, args.fused, args.scheme,
-                      args.sweep, args.fusedPrecision)
+                      args.sweep, args.fusedPrecision, args.adjoint)
     if err:
         p.error(err)
-    why = refusal(args.adjoint, args.rng, args.fusedPrecision, args.anchor)
+    why = refusal(args.anchor)
     if why:
         print(f"bench: {why}", file=sys.stderr)
         return 2
     return run(args.batch, args.inner, args.rounds, args.compensator,
                args.parity, args.model, args.sweep, args.fused, args.scheme,
-               args.device)
+               args.device, args.adjoint, args.fusedPrecision, args.rng)
 
 
 if __name__ == "__main__":

@@ -175,9 +175,8 @@ def _add_mfg_flags(p: argparse.ArgumentParser, defaults):
                         "normal draws")
     p.add_argument("--fast", action="store_true",
                    help="speed preset: the icdf Cox jump sampler (same law, "
-                        "tested against the exact sampler in tests/); the "
-                        "scan chunk it also sets is ignored, the port has "
-                        "no scan")
+                        "tested against the exact sampler in tests/) and "
+                        "the time loop checkpointed 16 steps a chunk")
 
 
 def _mfg_common(args) -> dict:
@@ -280,19 +279,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 def _bench(args) -> int:
     """The bench subcommand: ``experiments/bench.py``'s run of the global
-    scheme, after its argument checks and refusals (exit status 2)."""
+    scheme, after its argument checks (exit status 2)."""
     from deepfbsdejsolvers_torch.experiments import bench
 
-    why = (bench.usage_error(args.parity, args.model, args.fused, "global",
-                             args.sweep, args.fusedPrecision)
-           or bench.refusal(rng=args.rng,
-                            fused_precision=args.fusedPrecision))
+    why = bench.usage_error(args.parity, args.model, args.fused, "global",
+                            args.sweep, args.fusedPrecision)
     if why:
         print(f"deepfbsdejsolvers_torch bench: {why}", file=sys.stderr)
         return 2
     return bench.run(args.batch, args.inner, args.rounds, args.compensator,
                      args.parity, args.model, args.sweep, args.fused,
-                     "global", args.device)
+                     "global", args.device,
+                     fused_precision=args.fusedPrecision, rng=args.rng)
 
 
 def _dispatch(args, verbose: bool) -> int:

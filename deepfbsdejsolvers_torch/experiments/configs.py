@@ -13,8 +13,10 @@
 ``data_parallel=True`` shards each method's path batch over the ranks of
 the launcher's world (``python -m torch.distributed.run``; a world of one
 without a launcher; ``parallel/data_parallel.py``), rank 0 alone writing
-under ``io.outdir``.  A ``compute_dtype`` other than None raises
-NotImplementedError (ROADMAP item 13), as ``PricingSolver`` does.
+under ``io.outdir``.  ``compute_dtype="bfloat16"`` runs the heads'
+matmuls in bf16 (the pipeline then sweeps in plain PyTorch, as the kernels
+compute in f32); ``scan_chunk`` chunks the solvers' time loops
+(``ops/scan.py``).
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ class PricingConfigBase:
     n_poisson_max: int = 6            # quadrature sizing (Merton)
     n_hermite: int = 8
     n_laguerre: int = 12              # quadrature sizing (VG)
-    compute_dtype: Optional[str] = None   # not ported: must stay None
+    compute_dtype: Optional[str] = None   # "bfloat16": bf16 head matmuls
     # "pallas" sweeps the Γ head by the CUDA kernels B3/B4 where the
     # method's head takes them (experiments/pricing.py chooses per method)
     sweep_impl: str = "xla"
@@ -104,7 +106,7 @@ class PricingConfigBase:
     # requires x_interp="chebyshev")
     hoist: bool = False
     hoist_interp: str = "piecewise"   # "clenshaw" | "piecewise"
-    scan_chunk: int = 0               # accepted, ignored: no scan to chunk
+    scan_chunk: int = 0               # chunked time loop (ops/scan.py)
     price_mode: str = "series"        # "chebyshev" = collocated pricer
     # The reference trains the two Y-only regression schemes on 1000x the
     # nominal batch inside the solver (SolversJumpDiff.py:435,503), kept as
@@ -121,12 +123,6 @@ class PricingConfigBase:
     y0_warm_start: bool = False
     seed: int = 0
     io: RunIO = dataclasses.field(default_factory=RunIO)
-
-    def __post_init__(self):
-        if self.compute_dtype is not None:
-            raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r} is not ported yet "
-                "(ROADMAP Queue 1, item 13)")
 
     @property
     def hidden(self) -> Tuple[int, ...]:
@@ -179,7 +175,7 @@ class MFGConfigBase:
     activation: str = "tanh"
     # "icdf" inverts the per-path Cox CDF instead of torch.poisson
     jump_sampler: str = "exact"
-    scan_chunk: int = 0               # accepted, ignored: no scan to chunk
+    scan_chunk: int = 0               # chunked time loop (ops/scan.py)
     # Shard the path batch over the ranks of the launcher's world (a data
     # mesh; each rank takes its per_shard_batch of the batches)
     data_parallel: bool = False

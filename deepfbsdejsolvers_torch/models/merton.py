@@ -8,8 +8,11 @@
 * driver f(Y) = −rY and payoff g(X) = (X − K)⁺.
 
 The model holds host (numpy float32) tables and follows the device of the
-tensors it is given; each table is copied to a device once.  The ``"table"``
-price mode of the JAX package is not ported yet (ROADMAP Queue 1).
+tensors it is given; each table is copied to a device once.  With
+``price_mode="table"`` the price is read from per-step curves on
+``table_points`` log-moneyness points in [−``table_log_m_max``,
+``table_log_m_max``], built on the host in float64 as the JAX package builds
+them, by the Catmull-Rom cubic of ``ops/interp.py``.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ class MertonJumpModel:
     x0: float
     coupling: Callable[[torch.Tensor], torch.Tensor]
     limit: int = 30
-    # "series" evaluates the power series exactly per call; "chebyshev"
+    # "series" evaluates the power series exactly per call; "table" reads
+    # per-step price curves over log-moneyness by a cubic; "chebyshev"
     # evaluates it at n_cheb_price Chebyshev points spanning a 1-D batch of
     # at least 4·n_cheb_price spots and reconstructs per path by Clenshaw.
     price_mode: str = "series"
@@ -63,15 +67,13 @@ class MertonJumpModel:
     # "exact" draws Poisson counts with torch.poisson; "icdf" inverts the
     # CDF truncated at 1e-9 tail mass.
     jump_sampler: str = "exact"
+    table_points: int = 4097
+    table_log_m_max: float = 5.0
 
     def __post_init__(self):
-        if self.price_mode == "table":
-            raise NotImplementedError(
-                "price_mode='table' is not ported yet (ROADMAP Queue 1, "
-                "item 13); use 'series' or 'chebyshev'")
-        if self.price_mode not in ("series", "chebyshev"):
-            raise ValueError(
-                f"price_mode must be series|chebyshev, got {self.price_mode!r}")
+        if self.price_mode not in ("series", "table", "chebyshev"):
+            raise ValueError(f"price_mode must be series|table|chebyshev, got "
+                             f"{self.price_mode!r}")
         if self.jump_sampler not in ("exact", "icdf"):
             raise ValueError(
                 f"jump_sampler must be exact|icdf, got {self.jump_sampler!r}")
@@ -93,6 +95,12 @@ class MertonJumpModel:
             "sig_bs": sig_bs.astype(np.float32),
             "coeff": np.exp(log_coeff).astype(np.float32),
         }
+        if self.price_mode == "table":
+            g, curves = self._price_curves(tau, r_bs, sig_bs,
+                                           np.exp(log_coeff))
+            tables["price_table"] = curves.astype(np.float32)
+            object.__setattr__(self, "_g0", float(g[0]))
+            object.__setattr__(self, "_dg", float(g[1] - g[0]))
         if self.jump_sampler == "icdf":
             from scipy.stats import poisson as sp_poisson
 
@@ -104,6 +112,22 @@ class MertonJumpModel:
         object.__setattr__(self, "_kbar", float(kbar))
         object.__setattr__(self, "_host", tables)
         object.__setattr__(self, "_dev", {})
+
+    def _price_curves(self, tau, r_bs, sig_bs, coeff):
+        """(grid g (G,), curves (N, G)): the series price at spots K·e^g of
+        each step, in float64 on the host."""
+        from scipy.special import ndtr
+
+        g = np.linspace(-self.table_log_m_max, self.table_log_m_max,
+                        self.table_points)
+        x = self.K * np.exp(g)
+        sqrt_tau = np.sqrt(tau)                                  # (N, 1)
+        d1 = (g[None, :, None] + (r_bs + 0.5 * sig_bs**2)[:, None, :]
+              * tau[:, None, :]) / (sig_bs[:, None, :] * sqrt_tau[:, None, :])
+        d2 = d1 - (sig_bs * sqrt_tau)[:, None, :]
+        bs = (x[None, :, None] * ndtr(d1)
+              - self.K * np.exp(-r_bs * tau)[:, None, :] * ndtr(d2))
+        return g, np.einsum("ngl,nl->ng", bs, coeff)
 
     def tables(self, device) -> dict:
         """The host tables as tensors on ``device`` (copied on first use)."""
@@ -158,6 +182,12 @@ class MertonJumpModel:
     def price(self, i, x: torch.Tensor) -> torch.Tensor:
         """Merton call price A(i·dt, x).  ``i`` is an int or an integer
         tensor that broadcasts against ``x``."""
+        if self.price_mode == "table":
+            from deepfbsdejsolvers_torch.ops.interp import uniform_interp_cubic
+
+            return uniform_interp_cubic(
+                self.tables(x.device)["price_table"], torch.log(x / self.K),
+                self._g0, self._dg, row=i)
         if (self.price_mode == "chebyshev" and x.ndim == 1
                 and x.shape[0] >= 4 * self.n_cheb_price):
             from deepfbsdejsolvers_torch.ops.chebyshev import interp_1d

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -65,16 +65,35 @@ def init_mlp(generator: torch.Generator, spec: MLPSpec,
     return params
 
 
+def compute_dtype_of(name: Optional[str]) -> Optional[torch.dtype]:
+    """The torch dtype of a ``compute_dtype`` name: None (or "float32") for
+    f32 throughout, "bfloat16" for bf16 matmuls."""
+    if name is None or name == "float32":
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype must be None, 'float32' or 'bfloat16', "
+                     f"got {name!r}")
+
+
 def mlp_apply(params: Params, x: torch.Tensor,
-              activation: Callable[[torch.Tensor], torch.Tensor] = torch.tanh
-              ) -> torch.Tensor:
-    """Forward pass: x (..., n_in) -> (..., n_out)."""
+              activation: Callable[[torch.Tensor], torch.Tensor] = torch.tanh,
+              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Forward pass: x (..., n_in) -> (..., n_out).  With ``compute_dtype``
+    (bf16) the input, weights and biases are cast to it and every layer runs
+    there, as the JAX package's ``mlp_apply`` does (on the card the tensor
+    cores sum a bf16 product in f32); the output is cast back."""
+    out_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
     n = len(params["W"])
     for i, (w, b) in enumerate(zip(params["W"], params["b"])):
+        if compute_dtype is not None:
+            w, b = w.to(compute_dtype), b.to(compute_dtype)
         x = torch.matmul(x, w) + b
         if i < n - 1:
             x = activation(x)
-    return x
+    return x if compute_dtype is None else x.to(out_dtype)
 
 
 def param_leaves(params) -> list:

@@ -16,6 +16,13 @@ of the table is summed in a fixed order (no float atomics: PyTorch's own
 gather backward accumulates with atomics on the card, serialised over the
 few pieces).  Piece index and interval ends are detached; points outside
 the interval clamp to its boundary, with derivative 0 past the edge.
+
+The 2-D tables of ``pw2_*`` (the Γ head's hoisted tables over (x, J),
+``PricingSolver(hoist_gamma=True)``) are tensor products of the same local
+series: Px × Pj piece pairs, each (Dx + 1)·(Dj + 1) coefficients fitted by
+the two 1-D collocation inverses along their axes, and evaluated by a
+nested Clenshaw after ``select_rows`` picks the pair's row, so their
+backward too is the deterministic one-hot product.
 """
 
 from __future__ import annotations
@@ -139,3 +146,58 @@ def pw_eval_with_deriv(coef: torch.Tensor, x: torch.Tensor,
     dval = (basis * cheb_deriv_coef(c)).sum(-1)
     inside = ((s_raw >= 0.0) & (s_raw <= 1.0)).to(x.dtype)
     return val, dval * (2.0 * p / span) * inside
+
+
+def pw2_nodes(x_lo, x_hi, j_lo, j_hi, px: int, dx: int, pj: int, dj: int):
+    """(xn (..., px·(dx+1)), jn (..., pj·(dj+1))): the sample points of a
+    2-D piecewise fit on [x_lo, x_hi] × [j_lo, j_hi]; the caller evaluates
+    the target on the outer product of the two."""
+    return pw_nodes(x_lo, x_hi, px, dx), pw_nodes(j_lo, j_hi, pj, dj)
+
+
+def pw2_fit(values: torch.Tensor, px: int, dx: int, pj: int,
+            dj: int) -> torch.Tensor:
+    """Local 2-D Chebyshev coefficients (..., px·pj, (dx+1)·(dj+1)) from
+    values on the ``pw2_nodes`` grid (..., px·(dx+1), pj·(dj+1)): row
+    kx·pj + kj is piece pair (kx, kj), column a·(dj+1) + b the coefficient
+    of T_a(t_x)·T_b(t_j)."""
+    ddx, ddj = dx + 1, dj + 1
+    fx = _fit_on(dx, values.device)
+    fj = _fit_on(dj, values.device)
+    lead = values.shape[:-2]
+    v = values.reshape(*lead, px, ddx, pj, ddj)
+    v = torch.einsum("...aibj,xi->...abxj", v, fx)
+    v = torch.einsum("...abxj,yj->...abxy", v, fj)
+    return v.reshape(*lead, px * pj, ddx * ddj)
+
+
+def _clenshaw(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Σ_k c[..., k]·T_k(t) by Clenshaw's recurrence."""
+    b1 = torch.zeros_like(c[..., 0])
+    b2 = b1
+    for k in range(c.shape[-1] - 1, 0, -1):
+        b1, b2 = c[..., k] + 2.0 * t * b1 - b2, b1
+    return c[..., 0] + t * b1 - b2
+
+
+def _piece_of(v, lo, hi, p: int):
+    """(piece index, local t) of v on [lo, hi] split into p pieces, v
+    clamped to the interval, the ends and the index detached."""
+    lo, hi = lo.detach(), hi.detach()
+    s = torch.clamp((v - lo) / torch.clamp(hi - lo, min=1e-6), 0.0, 1.0) * p
+    k = torch.clamp(torch.floor(s), 0, p - 1).detach()
+    return k, 2.0 * (s - k) - 1.0
+
+
+def pw2_eval(coef: torch.Tensor, x: torch.Tensor, j: torch.Tensor, x_lo,
+             x_hi, j_lo, j_hi, px: int, dx: int, pj: int,
+             dj: int) -> torch.Tensor:
+    """One step's 2-D interpolant at (x, j) (both (B,)): coef (px·pj,
+    (dx+1)·(dj+1)) from ``pw2_fit``.  The pair's row is selected by
+    ``select_rows``; a Clenshaw in t_j for each x degree, then one in t_x.
+    Points outside the rectangle clamp to its edge."""
+    kx, tx = _piece_of(x, x_lo, x_hi, px)
+    kj, tj = _piece_of(j, j_lo, j_hi, pj)
+    c = select_rows(coef, (kx * pj + kj).long())
+    c = c.reshape(c.shape[:-1] + (dx + 1, dj + 1))
+    return _clenshaw(_clenshaw(c, tj[..., None]), tx)

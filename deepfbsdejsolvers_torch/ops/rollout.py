@@ -28,6 +28,15 @@ function.  The kernels come in two builds: specialised at the hidden widths
 128), each with its own launch count; ``rollout_kernels`` picks the pair of
 a width.  There is no fallback from the kernels to the plain loop on the
 card.
+
+Each kernel has two instances, chosen by ``head_precision``: "highest"
+(the default), the Γ head in f32 throughout; and "default", what the JAX
+package's DEFAULT precision of an f32 dot is on this card, one TF32 pass:
+every operand of the head's H×H products (h1·W2 forward and recomputed,
+dp2·W2ᵀ and h1ᵀ·dp2 backward) rounded to TF32, the sums in f32.  The plain
+version applies the same rounding (``ops/numerics.tf32_matmul``).  Each
+wrapper counts its launches in ``launches`` and those of the "default"
+instance also in ``launches_tf32``.
 """
 
 from __future__ import annotations
@@ -40,7 +49,9 @@ import torch
 
 from deepfbsdejsolvers_torch.nets.mlp import mlp_apply
 from deepfbsdejsolvers_torch.ops.chebyshev import cheb_eval
+from deepfbsdejsolvers_torch.ops.numerics import tf32_matmul
 from deepfbsdejsolvers_torch.ops.piecewise import pw_eval
+from deepfbsdejsolvers_torch.ops.scan import chunked_scan
 
 # Hidden widths the kernels are instantiated for (csrc/rollout_common.cuh).
 KERNEL_WIDTHS = (8, 21)
@@ -64,6 +75,36 @@ _WIDE_CLASSES = (32, 64, 128)
 _WIDE_TILE = 128
 _WIDE_B2_BLOCKS_PER_SM = {32: 2, 64: 2, 128: 1}
 _SMS = 132
+# The Γ head's precisions of the fused rollout: the JAX package's names.
+HEAD_PRECISIONS = ("highest", "default")
+
+
+def head_tf32_of(precision) -> bool:
+    """Whether a precision name (None: "highest") asks for the head-TF32
+    instance; raises ``ValueError`` for another name."""
+    name = "highest" if precision is None else str(precision).lower()
+    if name not in HEAD_PRECISIONS:
+        raise ValueError(f"precision must be one of {HEAD_PRECISIONS} or "
+                         f"None, got {precision!r}")
+    return name == "default"
+
+
+def gamma_head(gam_params, cols, activation=torch.tanh,
+               head_tf32: bool = False):
+    """The Γ head (3 → H → H → 1) on ``cols``: ``mlp_apply``, or with
+    ``head_tf32`` its H×H layer as a TF32 product.  There the first layer
+    is summed term by term, t·W1[t] + x·W1[x] + f·W1[f] + b1, each operation
+    rounded as the kernels' ``first_sum_tf32`` rounds it: h1 enters the
+    product rounded to TF32, where a last-bit difference of h1 would
+    become one of 2^-11."""
+    if not head_tf32:
+        return mlp_apply(gam_params, cols, activation)
+    (w1, w2, w3), (b1, b2, b3) = gam_params["W"], gam_params["b"]
+    c = cols[..., None]
+    h1 = activation(c[..., 0, :] * w1[0] + c[..., 1, :] * w1[1]
+                    + c[..., 2, :] * w1[2] + b1)
+    h2 = activation(tf32_matmul(h1, w2) + b2)
+    return torch.matmul(h2, w3) + b3
 
 
 def wide_class(h: int) -> int:
@@ -93,7 +134,9 @@ def table_eval(coef: torch.Tensor, x: torch.Tensor, lo: torch.Tensor,
 
 def rollout_plain(model, gam_params, y0, tables, dw, j,
                   time_scale: float = 1.0, activation=torch.tanh,
-                  x_prop: bool = False, residuals: bool = False):
+                  x_prop: bool = False, residuals: bool = False,
+                  head_tf32: bool = False, gamma=None, price=None, z=None,
+                  scan=None):
     """(x_N, y_N) of the hoisted global rollout, step by step.
 
     ``tables`` holds "lo", "hi" (N,) and "cc", "pc", "zc" per step; dw and j
@@ -103,31 +146,52 @@ def rollout_plain(model, gam_params, y0, tables, dw, j,
     (t, x, x·J), and there is no Z table, the model's step takes no dW, and
     dw is the zero-width (N, 0) placeholder.  With ``residuals`` it returns
     (x_N, y_N, xs, ys), xs and ys the (N, B) residuals kernel B1 saves for
-    B2: x before each step, y after each step's update."""
+    B2: x before each step, y after each step's update.  ``head_tf32`` runs
+    the head's H×H layer as a TF32 product (``gamma_head``).
+
+    The solver's hoisted loop and the hand-written adjoint's forward are
+    this loop too, through hooks: ``gamma(i, x, j_i)`` takes the place of
+    the Γ head on ``gam_params``, ``price(i, x)`` of the "pc" table (None:
+    the model's own pricer), ``z(i, x)`` of the "zc" table, and
+    ``scan(body, carry, n) -> (carry, per-step outputs)`` of the plain loop
+    (the solver's chunked time loop, ``ops/scan.py``)."""
     n, batch = j.shape
+    dt = model.dt
+
+    def table(name):
+        return lambda i, x: table_eval(tables[name][i], x, tables["lo"][i],
+                                       tables["hi"][i])
+
+    if gamma is None:
+        def gamma(i, x, ji):
+            t = torch.full_like(x, float(i)) * time_scale
+            feat = x * ji if x_prop else ji
+            return gamma_head(gam_params, torch.stack([t, x, feat], -1),
+                              activation, head_tf32)[..., 0]
+    comp = table("cc")
+    price = table("pc") if price is None else price
+    z = table("zc") if z is None else z
+
+    def body(carry, i):
+        x, y = carry
+        gam = gamma(i, x, j[i])
+        y = y - dt * model.f(y) + gam - comp(i, x)
+        a = price(i, x)
+        if not x_prop:
+            y = y + z(i, x) * dw[i]
+        if x_prop:
+            x_next = model.step(i, x, j[i], y, price=a)
+        else:
+            x_next = model.step(i, x, dw[i], j[i], y, price=a)
+        return (x_next, y), ((x, y) if residuals else None)
+
     x = model.init_x(batch, j.device)
     y = y0 * torch.ones((batch,), dtype=torch.float32, device=j.device)
-    dt = model.dt
-    xs, ys = [], []
-    for i in range(n):
-        xs.append(x)
-        lo, hi = tables["lo"][i], tables["hi"][i]
-        t = torch.full_like(x, float(i)) * time_scale
-        feat = x * j[i] if x_prop else j[i]
-        gam = mlp_apply(gam_params, torch.stack([t, x, feat], -1),
-                        activation)[..., 0]
-        comp = table_eval(tables["cc"][i], x, lo, hi)
-        y = y - dt * model.f(y) + gam - comp
-        price = table_eval(tables["pc"][i], x, lo, hi)
-        if not x_prop:
-            y = y + table_eval(tables["zc"][i], x, lo, hi) * dw[i]
-        ys.append(y)
-        if x_prop:
-            x = model.step(i, x, j[i], y, price=price)
-        else:
-            x = model.step(i, x, dw[i], j[i], y, price=price)
+    if scan is None:
+        scan = lambda body, carry, n: chunked_scan(body, carry, range(n), n)
+    (x, y), path = scan(body, (x, y), n)
     if residuals:
-        return x, y, torch.stack(xs), torch.stack(ys)
+        return x, y, path[0], path[1]
     return x, y
 
 
@@ -182,6 +246,7 @@ class KernelSpec:
     drift: float
     x0: float
     dt: float
+    head_tf32: bool = False
 
     def scalars(self, wide: bool = False) -> list:
         """The float arguments of the C entry points, in order: the
@@ -273,7 +338,7 @@ def _launch_fwd(name: str, wide: bool, spec, weights, y0, tables, dw, j,
     xs, ys)."""
     n, batch = _check_inputs(spec, weights, tables, dw, j, wide=wide)
     _check("y0", y0, (), dw.device)
-    fn = _lib(name, 17, 4, 7)
+    fn = _lib(name, 17, 5, 7)
     kw = dict(dtype=torch.float32, device=dw.device)
     xn = torch.empty((batch,), **kw)
     yn = torch.empty((batch,), **kw)
@@ -284,11 +349,18 @@ def _launch_fwd(name: str, wide: bool, spec, weights, y0, tables, dw, j,
         rc = fn(*map(_ptr, (dw, j, tables["cc"], tables["pc"], tables["zc"],
                             tables["lo"], tables["hi"], *weights, y0, xn, yn,
                             xs, ys)),
-                n, batch, spec.n_pieces, spec.hidden, *spec.scalars(wide),
-                ctypes.c_float(spec.x0), ctypes.c_void_p(stream))
+                n, batch, spec.n_pieces, spec.hidden, int(spec.head_tf32),
+                *spec.scalars(wide), ctypes.c_float(spec.x0),
+                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     return xn, yn, xs, ys
+
+
+def _count(wrapper, spec: KernelSpec) -> None:
+    """One launch of ``wrapper``'s kernel in ``spec``'s instance."""
+    wrapper.launches += 1
+    wrapper.launches_tf32 += int(spec.head_tf32)
 
 
 def b1_forward(spec: KernelSpec, weights, y0, tables, dw, j, save: bool):
@@ -300,11 +372,11 @@ def b1_forward(spec: KernelSpec, weights, y0, tables, dw, j, save: bool):
     when ``save`` is false."""
     out = _launch_fwd("rollout_fwd", False, spec, weights, y0, tables, dw, j,
                       save)
-    b1_forward.launches += 1
+    _count(b1_forward, spec)
     return out
 
 
-b1_forward.launches = 0
+b1_forward.launches = b1_forward.launches_tf32 = 0
 
 
 def b1_wide_forward(spec: KernelSpec, weights, y0, tables, dw, j,
@@ -315,11 +387,11 @@ def b1_wide_forward(spec: KernelSpec, weights, y0, tables, dw, j,
     version's f32 order.  Arguments and returns as ``b1_forward``."""
     out = _launch_fwd("rollout_wide_fwd", True, spec, weights, y0, tables,
                       dw, j, save)
-    b1_wide_forward.launches += 1
+    _count(b1_wide_forward, spec)
     return out
 
 
-b1_wide_forward.launches = 0
+b1_wide_forward.launches = b1_wide_forward.launches_tf32 = 0
 
 
 def b2_blocks(batch: int) -> int:
@@ -356,7 +428,7 @@ def _launch_bwd(name: str, wide: bool, spec, weights, tables, dw, j, xs, ys,
                            ("y_N cotangent", cyn, (batch,))):
         _check(what, t, shape, dw.device)
     n_blocks, n_out = b2_partial_shape(n, batch, spec.hidden, spec.n_pieces)
-    fn = _lib(name, 18, 5, 6)
+    fn = _lib(name, 18, 6, 6)
     kw = dict(dtype=torch.float32, device=dw.device)
     partials = torch.empty((n_blocks, n_out), **kw)
     out = torch.empty((n_out,), **kw)
@@ -366,7 +438,8 @@ def _launch_bwd(name: str, wide: bool, spec, weights, tables, dw, j, xs, ys,
                             tables["lo"], tables["hi"], *weights, xs, ys,
                             cxn, cyn, partials, out)),
                 n, batch, spec.n_pieces, spec.hidden, n_blocks,
-                *spec.scalars(wide), ctypes.c_void_p(stream))
+                int(spec.head_tf32), *spec.scalars(wide),
+                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     return out
@@ -383,11 +456,11 @@ def b2_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn, cyn):
     cc, pc, zc]."""
     out = _launch_bwd("rollout_bwd", False, spec, weights, tables, dw, j, xs,
                       ys, cxn, cyn)
-    b2_backward.launches += 1
+    _count(b2_backward, spec)
     return out
 
 
-b2_backward.launches = 0
+b2_backward.launches = b2_backward.launches_tf32 = 0
 
 
 def b2_wide_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn,
@@ -401,11 +474,11 @@ def b2_wide_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn,
     ``b2_backward``."""
     out = _launch_bwd("rollout_wide_bwd", True, spec, weights, tables, dw, j,
                       xs, ys, cxn, cyn)
-    b2_wide_backward.launches += 1
+    _count(b2_wide_backward, spec)
     return out
 
 
-b2_wide_backward.launches = 0
+b2_wide_backward.launches = b2_wide_backward.launches_tf32 = 0
 
 
 def rollout_kernels(h: int):
@@ -477,10 +550,12 @@ class FusedRollout(torch.autograd.Function):
 class FusedRolloutOp:
     """``rollout(gam_params, y0, tables, dw, j) -> (x_N, y_N)``: the plain
     loop on CPU tensors, the B1/B2 kernels of the head's width on CUDA
-    tensors."""
+    tensors, their instance of ``head_precision`` ("highest" or
+    "default")."""
 
     def __init__(self, model, hidden: int, time_scale: float = 1.0,
-                 n_pieces: int = 8, degree: int = 7):
+                 n_pieces: int = 8, degree: int = 7,
+                 head_precision: str = "highest"):
         consts = merton_form_constants(model)
         if consts is None:
             raise ValueError("the fused rollout requires a Merton-form model "
@@ -496,12 +571,15 @@ class FusedRolloutOp:
         self.spec = KernelSpec(hidden=hidden, n_pieces=n_pieces,
                                time_scale=float(time_scale), r=r,
                                a_lin=a_lin, sigma=sigma, drift=drift, x0=x0,
-                               dt=float(model.dt))
+                               dt=float(model.dt),
+                               head_tf32=head_tf32_of(head_precision))
 
     def plain(self, gam_params, y0, tables, dw, j):
-        """``rollout_plain`` with this operator's model and time scale."""
+        """``rollout_plain`` with this operator's model, time scale and
+        head precision."""
         return rollout_plain(self.model, gam_params, y0, tables, dw, j,
-                             self.spec.time_scale)
+                             self.spec.time_scale,
+                             head_tf32=self.spec.head_tf32)
 
     def __call__(self, gam_params, y0, tables, dw, j):
         if dw.device.type == "cpu":

@@ -35,13 +35,17 @@ autograd.  The numbers are those of drawing dN inside each step, not an
 approximation; and one draw serves every Picard iterate of
 ``warm_start_y0``, as the JAX package's fixed per-step keys do.
 
-With ``remat`` each step's differentiable body runs under
-``torch.utils.checkpoint``; the exogenous tables stay outside it.  The
-reference's Y0 pairing defect (the hat net read on the full state) stays
-fixed.  ``fuse_heads`` and ``compute_dtype`` raise NotImplementedError
-(ROADMAP item 13); ``scan_chunk`` is accepted and ignored: the port has no
-scan to chunk.  ``train(mesh=...)`` trains data-parallel
-(``parallel/data_parallel.py``), each data rank on its share of the batch.
+With ``remat`` the differentiable rollout runs under
+``torch.utils.checkpoint`` (``ops/scan.py`` ``chunked_scan``): a step at a
+time, or with ``scan_chunk`` a chunk of steps at a time; the loss and the
+gradients are the same bit for bit.  The exogenous tables stay outside it.
+``fuse_heads`` evaluates both heads a step as one MLP of block-diagonal
+weights, built once a loss call (where the depths and activations of the
+two heads match; else the split heads); ``compute_dtype="bfloat16"`` runs
+the heads' matmuls in bf16.  The reference's Y0 pairing defect (the hat net
+read on the full state) stays fixed.  ``train(mesh=...)`` trains
+data-parallel (``parallel/data_parallel.py``), each data rank on its share
+of the batch.
 """
 
 from __future__ import annotations
@@ -52,13 +56,13 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from deepfbsdejsolvers_torch.models.mfg_smart_grid import (
     FullTerms, HatTerms, MFGState, SmartGridMFGModel)
 from deepfbsdejsolvers_torch.nets.mlp import (
-    MLPSpec, get_activation, init_mlp, mlp_apply)
+    MLPSpec, compute_dtype_of, get_activation, init_mlp, mlp_apply)
 from deepfbsdejsolvers_torch.ops.numerics import use_full_f32
+from deepfbsdejsolvers_torch.ops.scan import chunked_scan
 from deepfbsdejsolvers_torch.parallel.data_parallel import (
     broadcast_params, per_shard_batch)
 from deepfbsdejsolvers_torch.solvers.train import fit, make_generator
@@ -111,7 +115,7 @@ class MFGSolver:
     activation: str = "tanh"
     remat: bool = True
     compute_dtype: Optional[str] = None
-    scan_chunk: int = 0           # accepted, ignored: no scan to chunk
+    scan_chunk: int = 0
     fuse_heads: bool = False
     device: str = "cuda"
 
@@ -119,11 +123,8 @@ class MFGSolver:
         if self.scheme not in MFG_SCHEMES:
             raise ValueError(f"scheme must be one of {MFG_SCHEMES}, got "
                              f"{self.scheme!r}")
-        for what, hit in (("compute_dtype", self.compute_dtype is not None),
-                          ("fuse_heads=True", self.fuse_heads)):
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported (ROADMAP Queue 1, item 13)")
+        object.__setattr__(self, "_cdtype",
+                           compute_dtype_of(self.compute_dtype))
         use_full_f32()
         object.__setattr__(self, "_act_hat",
                            get_activation(self.activation_hat))
@@ -161,16 +162,50 @@ class MFGSolver:
 
     def _hat(self, params, state: MFGState) -> torch.Tensor:
         return mlp_apply(params["hat"], self.model.projected_features(state),
-                         self._act_hat)
+                         self._act_hat, self._cdtype)
 
     def _full(self, params, state: MFGState) -> torch.Tensor:
         return mlp_apply(params["full"], self.model.all_features(state),
-                         self._act)
+                         self._act, self._cdtype)
 
-    def _heads(self, params, exo: Exogenous, i: int, hs, s):
-        """(hat, full) outputs at step ``i`` of the rollout."""
-        state = MFGState(i, exo.hq[i], exo.q[i], exo.r[i], hs, s)
-        return self._hat(params, state), self._full(params, state)
+    def _can_fuse_heads(self) -> bool:
+        """Whether ``fuse_heads`` applies: both heads of one depth and one
+        activation."""
+        return (self.fuse_heads and self.activation_hat == self.activation
+                and len(self.hidden_hat) == len(self.hidden))
+
+    def _fused_weights(self, params) -> dict:
+        """Per layer block-diag(W_hat, W_full) and the two biases side by
+        side: both heads as one MLP, its off-diagonal blocks zero."""
+        ws, bs = [], []
+        for wh, bh, wf, bf in zip(params["hat"]["W"], params["hat"]["b"],
+                                  params["full"]["W"], params["full"]["b"]):
+            ws.append(torch.block_diag(wh, wf))
+            bs.append(torch.cat([bh, bf], -1))
+        return {"W": ws, "b": bs}
+
+    def _pair_heads(self, params):
+        """``heads(state) -> (hat, full)`` for one loss call: the fused
+        chain, its weights built here once, or the two heads apart."""
+        if not self._can_fuse_heads():
+            return lambda state: (self._hat(params, state),
+                                  self._full(params, state))
+        fused = self._fused_weights(params)
+        d_hat = self.head_dims()[0]
+        model = self.model
+
+        def heads(state):
+            cols = torch.cat([model.projected_features(state),
+                              model.all_features(state)], -1)
+            out = mlp_apply(fused, cols, self._act, self._cdtype)
+            return out[..., :d_hat], out[..., d_hat:]
+
+        return heads
+
+    def _heads(self, pair, exo: Exogenous, i: int, hs, s):
+        """(hat, full) outputs at step ``i`` of the rollout, by ``pair``
+        (``_pair_heads``)."""
+        return pair(MFGState(i, exo.hq[i], exo.q[i], exo.r[i], hs, s))
 
     def controls(self, exo: Exogenous, i: int, hy, y):
         """(α̂, α) at step ``i`` from the tabulated terms."""
@@ -181,11 +216,11 @@ class MFGSolver:
         return a_hat, model.alpha_from(ht, ft, exo.hq[i], exo.target[i],
                                        a_hat, y)
 
-    def _bsde_step(self, params, exo, i, hs, s, hy, y):
+    def _bsde_step(self, pair, exo, i, hs, s, hy, y):
         """(hY, Y) at step i + 1 of the global scheme's BSDEs:
         Y − dt·f(S) + Z0·dW0 + Γ·(dN − λdt) [+ Z·dW], the heads at step i."""
         model, dt = self.model, self.model.dt
-        h_out, f_out = self._heads(params, exo, i, hs, s)
+        h_out, f_out = self._heads(pair, exo, i, hs, s)
         dw0, dw, dpi = exo.dw0[i], exo.dw[i], exo.dpi[i]
         hy_next = (hy - dt * model.f(hs) + h_out[..., 0] * dw0
                    + h_out[..., 1] * dpi)
@@ -250,15 +285,13 @@ class MFGSolver:
                              model.hat_terms(hq, r, m, tg),
                              model.full_terms(hq, q, m), tg)
 
-    def _step(self, body, *args):
-        """``body(*args)``, under ``torch.utils.checkpoint`` when ``remat``
-        is on and autograd records: only its outputs persist until the
-        backward, which recomputes it."""
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(body, *args, use_reentrant=False,
-                              preserve_rng_state=False,
-                              determinism_check="none")
-        return body(*args)
+    def _scan(self, body, carry):
+        """``chunked_scan`` of ``body(carry, i)`` over the N steps: under
+        ``remat`` checkpointed a step at a time, or ``scan_chunk`` steps at
+        a time."""
+        n = self.model.N
+        return chunked_scan(body, carry, range(n), n, self.scan_chunk,
+                            remat=self.remat)
 
     # ------------------------------------------------------------- rollouts
     def build_pair_loss_from_noise(self, batch: int) -> Callable:
@@ -304,14 +337,15 @@ class MFGSolver:
         hy = params["hat"]["y0"] * ones
         y = params["full"]["y0"] * ones
         hs = s = torch.full((b,), model.S0, device=exo.hq.device)
+        pair = self._pair_heads(params)
 
-        def body(i, hs, s, hy, y):
-            hy_next, y_next = self._bsde_step(params, exo, i, hs, s, hy, y)
+        def body(carry, i):
+            hs, s, hy, y = carry
+            hy_next, y_next = self._bsde_step(pair, exo, i, hs, s, hy, y)
             hs, s = self._advance(exo, i, hs, s, hy, y)
-            return hs, s, hy_next, y_next
+            return (hs, s, hy_next, y_next), None
 
-        for i in range(model.N):
-            hs, s, hy, y = self._step(body, i, hs, s, hy, y)
+        (hs, s, hy, y), _ = self._scan(body, (hs, s, hy, y))
         return (torch.mean(torch.square(hy - model.g(hs))),
                 torch.mean(torch.square(y - model.g(s))))
 
@@ -323,9 +357,11 @@ class MFGSolver:
         heads = self.with_heads
         b = exo.hq.shape[1]
         hs = s = torch.full((b,), model.S0, device=exo.hq.device)
+        pair = self._pair_heads(params)
 
-        def body(i, hs, s):
-            h_out, f_out = self._heads(params, exo, i, hs, s)
+        def body(carry, i):
+            hs, s = carry
+            h_out, f_out = self._heads(pair, exo, i, hs, s)
             hy, y = h_out[..., 0], f_out[..., 0]
             add_hat = -dt * model.f(hs)
             add = -dt * model.f(s)
@@ -336,13 +372,9 @@ class MFGSolver:
                 add = (add + f_out[..., 1] * dw0 + f_out[..., 2] * dpi
                        + f_out[..., 3] * dw)
             hs, s = self._advance(exo, i, hs, s, hy, y)
-            return hs, s, hy, y, add_hat, add
+            return (hs, s), (hy, y, add_hat, add)
 
-        rows = []
-        for i in range(model.N):
-            hs, s, *row = self._step(body, i, hs, s)
-            rows.append(row)
-        hys, ys, adds_hat, adds = (torch.stack(c) for c in zip(*rows))
+        (hs, s), (hys, ys, adds_hat, adds) = self._scan(body, (hs, s))
         fwd_hat = hys + _suffix_sum(adds_hat)
         fwd = ys + _suffix_sum(adds)
         return (torch.mean(torch.square(fwd_hat - model.g(hs)[None])),
@@ -359,10 +391,12 @@ class MFGSolver:
         heads = self.with_heads
         b = exo.hq.shape[1]
         hs = s = torch.full((b,), model.S0, device=exo.hq.device)
-        h_out, f_out = self._heads(params, exo, 0, hs, s)
+        pair = self._pair_heads(params)
+        h_out, f_out = self._heads(pair, exo, 0, hs, s)
         hy, y = h_out[..., 0], f_out[..., 0]
 
-        def body(i, hs, s, hy, y, h_out, f_out):
+        def body(carry, i):
+            hs, s, hy, y, h_out, f_out = carry
             add_hat = dt * model.f(hs)
             add = dt * model.f(s)
             if heads:
@@ -375,18 +409,14 @@ class MFGSolver:
             if i == n - 1:
                 hy_next, y_next = model.g(hs), model.g(s)
             else:
-                h_out, f_out = self._heads(params, exo, i + 1, hs, s)
+                h_out, f_out = self._heads(pair, exo, i + 1, hs, s)
                 hy_next, y_next = h_out[..., 0], f_out[..., 0]
             err_hat = torch.mean(torch.square(hy_next - hy + add_hat))
             err = torch.mean(torch.square(y_next - y + add))
-            return hs, s, hy_next, y_next, h_out, f_out, err_hat, err
+            return (hs, s, hy_next, y_next, h_out, f_out), (err_hat, err)
 
-        errs = []
-        for i in range(n):
-            hs, s, hy, y, h_out, f_out, *err = self._step(
-                body, i, hs, s, hy, y, h_out, f_out)
-            errs.append(err)
-        errs_hat, errs_full = (torch.stack(c) for c in zip(*errs))
+        _, (errs_hat, errs_full) = self._scan(
+            body, (hs, s, hy, y, h_out, f_out))
         return torch.sum(errs_hat), torch.sum(errs_full)
 
     # ------------------------------------------------------------- training
@@ -537,20 +567,21 @@ class MFGSolver:
         b = exo.hq.shape[1]
         hs = s = torch.full((b,), model.S0, device=exo.hq.device)
         is_global = self.scheme == "global"
+        pair = self._pair_heads(params)
         if is_global:
             ones = torch.ones((b,), device=exo.hq.device)
             hy, y = params["hat"]["y0"] * ones, params["full"]["y0"] * ones
         else:
-            h_out, f_out = self._heads(params, exo, 0, hs, s)
+            h_out, f_out = self._heads(pair, exo, 0, hs, s)
             hy, y = h_out[..., 0], f_out[..., 0]
         for i in range(model.N):
             yield i, hs, s, hy, y
             if is_global:
-                hy_next, y_next = self._bsde_step(params, exo, i, hs, s, hy,
+                hy_next, y_next = self._bsde_step(pair, exo, i, hs, s, hy,
                                                   y)
             hs, s = self._advance(exo, i, hs, s, hy, y)
             if not is_global:
-                h_out, f_out = self._heads(params, exo, i + 1, hs, s)
+                h_out, f_out = self._heads(pair, exo, i + 1, hs, s)
                 hy_next, y_next = h_out[..., 0], f_out[..., 0]
             hy, y = hy_next, y_next
         yield model.N, hs, s, hy, y

@@ -29,14 +29,18 @@ evaluated before the loop.  Then the time loop runs either
 
 * hoisted (``hoist=True``): per-step tables built outside the loop
   (``_hoist_tables``) — each step's spot interval comes from the uncoupled
-  log-increments of the drawn noise, and the compensator E_J[Γ], the
-  collocated price A(i, x) and, for jump-diffusion ``global``, the Z head
-  are fitted on it.
-  The global rollout reads them in ``ops/rollout.py`` (step by step, or with
-  ``fused_rollout=True`` as the B1/B2 CUDA kernels, at any width up to
-  128); the other schemes read
-  them in their own loops.  The sumlocal tables span the x_{i+1} marginal
-  (``shift_next``) and hold no price table;
+  log-increments of the drawn noise, and the compensator E_J[Γ], the price
+  A(i, x) when the model collocates it, for jump-diffusion ``global`` the Z
+  head unless ``hoist_z=False``, and with ``hoist_gamma`` (piecewise, Γ-net
+  schemes) the Γ head itself as 2-D tables over (x, J) (``ops/piecewise.py``
+  ``pw2_*``) are fitted on it.  The global rollout reads them in its loop
+  (``_global_hoisted``, through ``ops/rollout.py``'s ``rollout_plain``, the
+  kernels' reference), or with ``fused_rollout=True`` in the B1/B2 CUDA
+  kernels (``ops/rollout.py``, at any width up to 128), or with
+  ``adjoint=True`` through the hand-written adjoint
+  (``solvers/adjoint.py``); the other schemes read them in their own
+  loops.  The sumlocal tables span the x_{i+1} marginal (``shift_next``)
+  and hold no price table;
 * or per step (``hoist=False``, the reference-faithful parity path): every
   step evaluates the heads, A(i, x) by the model's pricer, and the
   compensator by sweeping Γ over the node set for every path
@@ -63,10 +67,12 @@ too), through B3/B4 with ``sweep_impl="pallas"``; the partial sums are
 summed over the axis (quadrature) or averaged (Monte-Carlo) by a
 differentiable all-reduce.
 
-The 2-D Γ tables, the hand-written adjoint and bf16 heads raise
-NotImplementedError (ROADMAP Queue 1).
-``scan_chunk`` is accepted and ignored: it shapes the JAX package's XLA
-scan, and the port has no scan.
+Every time loop runs through ``ops/scan.py``'s ``chunked_scan``: with
+``scan_chunk`` its steps are checkpointed in chunks (only a chunk's inputs
+kept, the chunk replayed in the backward), and the loss and gradients are
+those of the plain loop bit for bit; at 0 the loop is the
+plain one, each un-hoisted sweep rematerialized on its own under
+``remat``.  ``compute_dtype="bfloat16"`` runs the heads' matmuls in bf16.
 """
 
 from __future__ import annotations
@@ -74,22 +80,25 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from deepfbsdejsolvers_torch.nets.mlp import (
-    MLPSpec, get_activation, init_mlp, mlp_apply)
+    MLPSpec, compute_dtype_of, get_activation, init_mlp, mlp_apply)
 from deepfbsdejsolvers_torch.ops.chebyshev import (
     _cheb_tables_on, cheb_fit, interp_1d)
 from deepfbsdejsolvers_torch.ops.compensator import (
     CompensatorSpec, compensated_mean)
-from deepfbsdejsolvers_torch.ops.numerics import use_full_f32
-from deepfbsdejsolvers_torch.ops.piecewise import pw_fit, pw_nodes
+from deepfbsdejsolvers_torch.ops.numerics import tf32_allowed, use_full_f32
+from deepfbsdejsolvers_torch.ops.piecewise import (
+    pw2_eval, pw2_fit, pw2_nodes, pw_fit, pw_nodes)
 from deepfbsdejsolvers_torch.ops.rollout import (
-    KERNEL_COEFFS, ROLLOUT_MAX_WIDTH, FusedRolloutOp, merton_form_constants,
-    rollout_plain, table_eval)
+    KERNEL_COEFFS, ROLLOUT_MAX_WIDTH, FusedRolloutOp, head_tf32_of,
+    merton_form_constants, rollout_plain, table_eval)
+from deepfbsdejsolvers_torch.ops.scan import chunked_scan
 from deepfbsdejsolvers_torch.ops.sweep import (
     SWEEP_MAX_WIDTH, fused_sweep, rank1_three_feature, rank1_two_feature)
 from deepfbsdejsolvers_torch.parallel.data_parallel import psum
@@ -102,9 +111,6 @@ _GAMMA_NET_SCHEMES = ("global", "multistep2", "sumlocal2")
 _REGRESSIONS = ("sumlocal_reg", "multistep_reg")
 
 Params = Dict[str, dict]
-
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
-
 
 def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
     """S_i = Σ_{j≥i} x_j along axis 0: the multistep accumulation."""
@@ -129,7 +135,21 @@ class PricingSolver:
     those two sweep their 2-output U-net, which the kernels do not take,
     and refuse it.
     ``remat`` runs each step's plain sweep under ``torch.utils.checkpoint``,
-    so that only its (B,) output persists until the backward.
+    so that only its (B,) output persists until the backward; with
+    ``scan_chunk`` it checkpoints the time loop by chunks instead
+    (``ops/scan.py``).
+    ``adjoint=True`` differentiates the hoisted global jump-diffusion
+    rollout by the hand-written adjoint (``solvers/adjoint.py``) where the
+    JAX package's ``_adjoint_ok`` holds (``adjoint_unmet``); elsewhere the
+    JAX package warns and falls back to autodiff, as the port does on the
+    CPU, while on the card the port raises ``ValueError``.
+    ``fused_precision`` and ``fused_head_precision`` ("highest", the
+    default, or "default") are the fused rollout's precisions.  The first
+    governs the JAX package's one-hot select dots; the kernels select a
+    piece by its index, which no precision changes, so both values give the
+    same bits.  The second is the Γ head's: "default" runs the kernels'
+    head-TF32 instance (``ops/rollout.py``) and builds the tables with TF32
+    allowed, as the JAX package builds them at the matching precision.
     ``comp_axis`` and ``comp_shards`` shard the compensator's node axis
     (module docstring); the loss is then built on a mesh whose
     ``comp_axis`` has ``comp_shards`` ranks, and runs on its ranks.
@@ -152,9 +172,13 @@ class PricingSolver:
     pw_degree: int = 7
     hoist_z: bool = True
     hoist_gamma: bool = False
-    scan_chunk: int = 0           # accepted, ignored: no scan to chunk
+    pw_pieces_j: int = 4
+    pw_degree_j: int = 4
+    scan_chunk: int = 0
     adjoint: bool = False
     fused_rollout: bool = False
+    fused_precision: Optional[str] = None
+    fused_head_precision: Optional[str] = None
     time_scale: float = 1.0
     device: str = "cuda"
 
@@ -175,6 +199,10 @@ class PricingSolver:
                              "'chebyshev' (the hoisted tables are the "
                              "collocation)")
         self._check_comp_sharding()
+        object.__setattr__(self, "_cdtype",
+                           compute_dtype_of(self.compute_dtype))
+        head_tf32_of(self.fused_precision)
+        head_tf32_of(self.fused_head_precision)
         unmet = {
             "fused_rollout=True": self.fused_rollout and self.fused_unmet(),
             "sweep_impl='pallas'":
@@ -184,19 +212,16 @@ class PricingSolver:
             if reasons:
                 raise ValueError(f"{flag} precondition not met: "
                                  + "; ".join(reasons))
-        unported = {
-            "compute_dtype": self.compute_dtype is not None,
-            "hoist_gamma": self.hoist_gamma,
-            "adjoint": self.adjoint,
-            "hoist_z=False with hoist=True":
-                (self.hoist and not self.hoist_z and self.scheme == "global"
-                 and self.jump_diff),
-            "price_mode != 'chebyshev' with hoist=True":
-                self.hoist and not self._price_collocated(),
-        }
-        for what, hit in unported.items():
-            if hit:
-                raise NotImplementedError(f"{what} {_NOT_PORTED}")
+        adjoint = self.adjoint and not self.fused_rollout
+        if adjoint and self.adjoint_unmet():
+            why = "; ".join(self.adjoint_unmet())
+            if torch.device(self.device).type == "cuda":
+                raise ValueError(f"adjoint=True precondition not met: {why}")
+            warnings.warn(f"adjoint=True requires the fully hoisted "
+                          f"piecewise global jump-diffusion path ({why}); "
+                          f"falling back to autodiff")
+            adjoint = False
+        object.__setattr__(self, "_adjoint", adjoint)
         use_full_f32()
         quad = (None, None)
         if self.compensator.kind == "quadrature":
@@ -297,7 +322,7 @@ class PricingSolver:
                 for name, spec in self.net_specs().items()}
 
     def _apply(self, p, cols) -> torch.Tensor:
-        return mlp_apply(p, cols, self._act)
+        return mlp_apply(p, cols, self._act, self._cdtype)
 
     def _time(self, i, like: torch.Tensor) -> torch.Tensor:
         """The time feature: raw step index × time_scale, broadcast."""
@@ -364,12 +389,19 @@ class PricingSolver:
 
     # ----------------------------------------------------- compensator sweep
     def _remat(self, fn):
-        """``fn()``, under ``torch.utils.checkpoint`` when ``remat`` is on
-        and autograd records: only its output persists until the backward,
-        which recomputes it."""
-        if self.remat and torch.is_grad_enabled():
+        """``fn()``, under ``torch.utils.checkpoint`` when ``remat`` is on,
+        the time loop is not chunked, and autograd records: only its output
+        persists until the backward, which recomputes it."""
+        if self.remat and not self.scan_chunk and torch.is_grad_enabled():
             return checkpoint(fn, use_reentrant=False)
         return fn()
+
+    def _scan(self, body, carry, n: int):
+        """``chunked_scan`` of ``body(carry, i)`` over the N steps: chunks
+        of ``scan_chunk`` steps checkpointed under ``remat``; the plain
+        loop when ``scan_chunk`` is 0."""
+        return chunked_scan(body, carry, range(n), n, self.scan_chunk,
+                            remat=self.remat and bool(self.scan_chunk))
 
     def _resolve_node_block(self, n_nodes: int, batch: int) -> Optional[int]:
         """Node-axis chunk of the plain direct sweep
@@ -469,9 +501,24 @@ class PricingSolver:
         the un-hoisted machinery."""
         if tables is None:
             return self._gamma_and_compensator(params, i, x, j, mc_nodes)
-        comp = table_eval(tables["cc"][i], x, tables["lo"][i],
+        comp = self._table_comp(tables, i, x)
+        return self._table_gamma(params, tables, i, x, j), comp
+
+    @staticmethod
+    def _table_comp(tables, i, x):
+        """The hoisted compensator of step ``i`` at x."""
+        return table_eval(tables["cc"][i], x, tables["lo"][i],
                           tables["hi"][i])
-        return self._gamma_head(params, i, x, j), comp
+
+    def _table_gamma(self, params, tables, i, x, j):
+        """Γ at the realized jump on a hoisted step: the 2-D table under
+        ``hoist_gamma``, else the head."""
+        if "gc" not in tables:
+            return self._gamma_head(params, i, x, j)
+        return pw2_eval(tables["gc"][i], x, j, tables["lo"][i],
+                        tables["hi"][i], tables["jlo"][i], tables["jhi"][i],
+                        self.pw_pieces, self.pw_degree, self.pw_pieces_j,
+                        self.pw_degree_j)
 
     @staticmethod
     def _step_price(tables, i, x):
@@ -481,6 +528,14 @@ class PricingSolver:
             return None
         return table_eval(tables["pc"][i], x, tables["lo"][i],
                           tables["hi"][i])
+
+    def _step_z(self, params, tables, i, x):
+        """Z(i, x) of the global jump-diffusion scheme: the hoisted table,
+        or the head itself under ``hoist_z=False``."""
+        if "zc" in tables:
+            return table_eval(tables["zc"][i], x, tables["lo"][i],
+                              tables["hi"][i])
+        return self._uz(params, i, x)[..., 0]
 
     # ---------------------------------------------------------------- noise
     @property
@@ -563,11 +618,32 @@ class PricingSolver:
             comp = self._sweep_comp_at(params, steps[:, 0], nodes,
                                        *self._quad)
         out = {"lo": lo, "hi": hi, "cc": fit(comp)}
-        if not shift_next:
+        if self._price_collocated() and not shift_next:
             out["pc"] = fit(model.price(steps, nodes))
-        if self.scheme == "global" and self.jump_diff:
+        if self.hoist_z and self.scheme == "global" and self.jump_diff:
             out["zc"] = fit(self._uz(params, steps, nodes)[..., 0])
+        if (self.hoist_gamma and self.hoist_interp == "piecewise"
+                and self.use_gam_net):
+            out.update(self._gamma_tables(params, j[:n], lo, hi))
         return out
+
+    def _gamma_tables(self, params, j, lo, hi) -> dict:
+        """{"gc", "jlo", "jhi"}: per step the 2-D table (pieces pairs ×
+        coefficients) of the Γ head over [lo_i, hi_i] × the range of the
+        step's drawn jumps, padded by 1% (and 1e-4, should a step draw no
+        jump), from one batched evaluation of the head on every (step,
+        x-node, j-node)."""
+        jlo = j.min(dim=1).values.detach()
+        jhi = j.max(dim=1).values.detach()
+        jpad = 0.01 * (jhi - jlo) + 1e-4
+        jlo, jhi = jlo - jpad, jhi + jpad
+        px, dx = self.pw_pieces, self.pw_degree
+        pj, dj = self.pw_pieces_j, self.pw_degree_j
+        xn, jn = pw2_nodes(lo, hi, jlo, jhi, px, dx, pj, dj)
+        steps = torch.arange(j.shape[0], device=lo.device)[:, None, None]
+        vals = self._gamma_head(params, steps, xn[:, :, None],
+                                jn[:, None, :])              # (N, nx, nj)
+        return {"gc": pw2_fit(vals, px, dx, pj, dj), "jlo": jlo, "jhi": jhi}
 
     # ----------------------------------------------------- kernel conditions
     def _head_unmet(self, max_width: int) -> List[str]:
@@ -599,6 +675,34 @@ class PricingSolver:
         if merton_form_constants(self.model) is None:
             reasons.append("the model is not of Merton form "
                            "(merton_form_constants)")
+        if not self.hoist_z:
+            reasons.append("needs hoist_z=True (the kernels read a Z table)")
+        if self.hoist_gamma:
+            reasons.append("hoist_gamma: the kernels evaluate the Γ head")
+        if not self._price_collocated():
+            reasons.append("needs a collocated price (the kernels read a "
+                           "price table)")
+        if self._cdtype is not None:
+            reasons.append(f"compute_dtype {self.compute_dtype!r}: the "
+                           "kernels compute in f32")
+        return reasons
+
+    def adjoint_unmet(self) -> List[str]:
+        """The unmet preconditions of the hand-written adjoint (empty when
+        it applies), the JAX package's ``_adjoint_ok``: the global
+        jump-diffusion scheme on the hoisted piecewise path with the Z and
+        price tables."""
+        reasons = []
+        if self.scheme != "global" or not self.jump_diff:
+            reasons.append(f"scheme {self.scheme!r} in the "
+                           f"{self.model.regime} regime: the adjoint runs "
+                           "the global jump-diffusion rollout")
+        if not self.hoist or self.hoist_interp != "piecewise":
+            reasons.append("needs hoist=True and hoist_interp='piecewise'")
+        if not self.hoist_z:
+            reasons.append("needs hoist_z=True")
+        if not self._price_collocated():
+            reasons.append("needs a collocated price")
         return reasons
 
     def sweep_unmet(self) -> List[str]:
@@ -616,21 +720,30 @@ class PricingSolver:
             reasons.append(f"scheme {self.scheme!r} sweeps the 2-output "
                            "U-net, Γ = U(t, X·e^J)[0]; the kernels take a "
                            "Γ net of one output")
-        if self.compute_dtype is not None:
+        if self._cdtype is not None:
             reasons.append(f"compute_dtype {self.compute_dtype!r}: the "
                            "kernels compute in f32")
         return reasons
 
     # --------------------------------------------------------------- global
-    def _rollout(self) -> Callable:
+    def _rollout(self) -> Optional[Callable]:
+        """The hoisted global rollout of the fused kernels or of the
+        hand-written adjoint, ``roll(gam_params, y0, tables, dw, j) ->
+        (x_N, y_N)``; None for the solver's own loop."""
         if self.fused_rollout:
             return FusedRolloutOp(self.model, self.hidden[0],
                                   time_scale=self.time_scale,
                                   n_pieces=self.pw_pieces,
-                                  degree=self.pw_degree)
-        return lambda gp, y0, tables, dw, j: rollout_plain(
-            self.model, gp, y0, tables, dw, j, self.time_scale, self._act,
-            x_prop=self._x_prop)
+                                  degree=self.pw_degree,
+                                  head_precision=self.fused_head_precision)
+        if self._adjoint:
+            from deepfbsdejsolvers_torch.solvers.adjoint import (
+                make_global_adjoint_rollout)
+
+            return make_global_adjoint_rollout(
+                self.model, lambda gp, i, x, j: self._apply(
+                    gp, self._gamma_inputs(i, x, j))[..., 0])
+        return None
 
     def _mc_rows(self, noise):
         """The per-step Monte-Carlo node draws of ``noise``, or a row of
@@ -653,25 +766,49 @@ class PricingSolver:
         dw, j, mc = noise[0], noise[1], self._mc_rows(noise)
         x = model.init_x(j.shape[1], j.device)
         y = params[self._y0_head]["y0"] * torch.ones_like(x)
-        xs, ys = [x], [y]
-        for i in range(model.N):
+
+        def body(carry, i):
+            x, y = carry
             gam, comp = self._gamma_and_compensator(params, i, x, j[i], mc[i])
             y = y - dt * model.f(y) + gam - comp
             if self.jump_diff:
                 y = y + self._uz(params, i, x)[..., 0] * dw[i]
             x = self._fstep(i, x, dw[i], j[i], y)
-            if trace:
-                xs.append(x)
-                ys.append(y)
-        return (torch.stack(xs), torch.stack(ys)) if trace else (x, y)
+            return (x, y), ((x, y) if trace else None)
+
+        (x_n, y_n), path = self._scan(body, (x, y), model.N)
+        if trace:
+            return (torch.cat([x[None], path[0]]),
+                    torch.cat([y[None], path[1]]))
+        return x_n, y_n
+
+    def _global_hoisted(self, params, tables, noise):
+        """(x_N, y_N) of the hoisted global rollout read from ``tables``:
+        ``rollout_plain``'s loop with the solver's Γ (the head, or its 2-D
+        table), price (its table, or the model's pricer where there is
+        none), Z (its table, or the Z head) and chunked time loop."""
+        return rollout_plain(
+            self.model, None, params[self._y0_head]["y0"], tables, noise[0],
+            noise[1], x_prop=self._x_prop,
+            gamma=lambda i, x, ji: self._table_gamma(params, tables, i, x,
+                                                     ji),
+            price=lambda i, x: self._step_price(tables, i, x),
+            z=lambda i, x: self._step_z(params, tables, i, x),
+            scan=self._scan)
 
     def _global_loss(self, params, noise, roll):
-        if self.hoist:
-            x_n, y_n = roll(params["gam"], params[self._y0_head]["y0"],
-                            self._hoist_tables(params, noise), noise[0],
-                            noise[1])
-        else:
+        if not self.hoist:
             x_n, y_n = self._rollout_direct(params, noise)
+        elif roll is None:
+            x_n, y_n = self._global_hoisted(
+                params, self._hoist_tables(params, noise), noise)
+        else:
+            # the kernels' tables at the head's precision
+            with tf32_allowed(self.fused_rollout and head_tf32_of(
+                    self.fused_head_precision)):
+                tables = self._hoist_tables(params, noise)
+            x_n, y_n = roll(params["gam"], params[self._y0_head]["y0"],
+                            tables, noise[0], noise[1])
         return torch.mean(torch.square(y_n - self.model.payoff(x_n)))
 
     # ------------------------------------------------------------- multistep
@@ -685,8 +822,8 @@ class PricingSolver:
         tables = (self._hoist_tables(params, noise)
                   if heads and self.hoist else None)
         x = model.init_x(j.shape[1], j.device)
-        ys, adds = [], []
-        for i in range(model.N):
+
+        def body(x, i):
             out = self._uz(params, i, x)
             y = out[..., 0]
             to_add = -dt * model.f(y)
@@ -698,9 +835,10 @@ class PricingSolver:
                     to_add = to_add + out[..., 1] * dw[i]
             x = self._fstep(i, x, dw[i], j[i], y,
                             price=self._step_price(tables, i, x))
-            ys.append(y)
-            adds.append(to_add)
-        fwd = torch.stack(ys) + _suffix_sum(torch.stack(adds))     # (N, B)
+            return x, (y, to_add)
+
+        x, (ys, adds) = self._scan(body, x, model.N)
+        fwd = ys + _suffix_sum(adds)                               # (N, B)
         # a mean over steps, as the reference's reduce_sum wraps an
         # already-scalar double mean
         return torch.mean(torch.square(fwd - model.payoff(x)[None, :]))
@@ -737,8 +875,9 @@ class PricingSolver:
             params, None, 0, x, j, mc[n])
         tables = (self._hoist_tables(params, noise, shift_next=True)
                   if heads and self.hoist else None)
-        errs = []
-        for i in range(n):
+
+        def body(carry, i):
+            x, j, y_prev, z_prev, gam_prev, comp_prev = carry
             to_add = dt * model.f(y_prev)
             if heads:
                 to_add = to_add - gam_prev + comp_prev
@@ -750,9 +889,11 @@ class PricingSolver:
             y_net, z_prev, gam_prev, comp_prev = self._sumlocal_heads(
                 params, tables, i, x, j_all[i], mc[i])
             y_next = model.payoff(x) if i == n - 1 else y_net
-            errs.append(torch.mean(torch.square(y_next - y_prev + to_add)))
-            j, y_prev = j_all[i], y_next
-        return torch.sum(torch.stack(errs))
+            err = torch.mean(torch.square(y_next - y_prev + to_add))
+            return (x, j_all[i], y_next, z_prev, gam_prev, comp_prev), err
+
+        carry = (x, j, y_prev, z_prev, gam_prev, comp_prev)
+        return torch.sum(self._scan(body, carry, n)[1])
 
     # ------------------------------------------------------------------ loss
     def build_loss_from_noise(self, batch: int, mesh=None) -> Callable:
@@ -877,9 +1018,7 @@ class PricingSolver:
                                                        j_all[i], None)
                     y = y - dt * model.f(y) + gam - comp
                     if self.jump_diff:
-                        y = y + table_eval(tables["zc"][i], x,
-                                           tables["lo"][i],
-                                           tables["hi"][i]) * dw[i]
+                        y = y + self._step_z(params, tables, i, x) * dw[i]
                 else:
                     y = self._uz(params, i, x)[..., 0]
                 x = self._fstep(i, x, dw[i], j_all[i], y,

@@ -26,7 +26,8 @@ Prints each build's ptxas report; its SASS (``cuobjdump -sass``) counts per
 kernel, whole and per loop: every backward branch closes a loop, printed
 with its nesting depth and the counts of its body without its inner
 loops, so that each body can be multiplied by its trip count; whether
-B1's outputs and B3's output equal the first build's bit for bit; the two
+B1's and B2's outputs and B3's output equal the first build's bit for
+bit; the two
 times of each kernel; and the card's name and power limit.  Exits non-zero
 without a card or when a check fails.
 
@@ -47,8 +48,8 @@ With ``--wide-rollout`` it takes the wide rollout pair B1w/B2w instead
 its own version's ``ops/rollout.py`` (whose tiling and B2w block count may
 differ): ``check_kernels`` at hidden 20, 64, 100 and 128 at N = 50 on
 2^14 + 37 paths (B1w's forward and loss, B2w's gradients two ways, each
-leaf and as a whole, B2w bit for bit on rerun), and whether B1w's outputs
-equal the first build's bit for bit; ``chip_smoke.py``'s
+leaf and as a whole, B2w bit for bit on rerun), and whether B1w's and
+B2w's outputs equal the first build's bit for bit; ``chip_smoke.py``'s
 ``ROLLOUT_F64_CHECK`` (H = 128, N = 50, 2^12 + 37 paths), the loss's and
 each gradient leaf's distance from a float64 evaluation for each build's
 kernels and for the plain version; the kernels timed in turns at N = 50,
@@ -342,12 +343,14 @@ def wide_rollout_ab(C, dirs: dict) -> None:
             print(f"{label} H={h} N={C.N_STEPS} B={C.CHECK_BATCH}:")
             with rollout_of(mods[label], built[label]):
                 C.check_kernels(op, m, inputs)
-                outs[label] = C.kernel_calls(op, inputs)[0]()
+                fwd, bwd = C.kernel_calls(op, inputs)
+                outs[label] = (*fwd(), bwd())
         for label in order:
-            same = all(torch.equal(a, b) for a, b in
-                       zip(outs[label], outs[order[0]]))
+            same = [torch.equal(a, b) for a, b in
+                    zip(outs[label], outs[order[0]])]
             print(f"{label} H={h}: B1w outputs (x_N, y_N, xs, ys) "
-                  f"bit-identical to {order[0]}'s: {same}")
+                  f"bit-identical to {order[0]}'s: {all(same[:4])}; B2w's "
+                  f"output: {same[4]}")
         del inputs, outs
     h, n, batch = C.ROLLOUT_F64_CHECK
     m, inputs = C.rollout_case(model, kw, h, n, batch)
@@ -439,19 +442,21 @@ def main() -> int:
     # B1/B2: checks, and B1's outputs bit for bit across builds
     model, kw = C.speed_config()
     m, inputs = C.rollout_case(model, kw, C.HIDDEN, C.N_STEPS, C.CHECK_BATCH)
-    b1_outs = {}
+    b1_outs, b2_outs = {}, {}
     for label in order:
         op = mods[label].FusedRolloutOp(m, C.HIDDEN, n_pieces=C.PIECES)
         print(f"{label} rollout N={C.N_STEPS} B={C.CHECK_BATCH}:")
         with using(built[label]):
             C.check_kernels(op, m, inputs)
-            b1_outs[label] = C.kernel_calls(op, inputs)[0]()
+            fwd, bwd = C.kernel_calls(op, inputs)
+            b1_outs[label], b2_outs[label] = fwd(), bwd()
     for label in order:
         same = all(torch.equal(a, b) for a, b in
                    zip(b1_outs[label], b1_outs[order[0]]))
+        same2 = torch.equal(b2_outs[label], b2_outs[order[0]])
         print(f"{label}: B1 outputs (x_N, y_N, xs, ys) bit-identical to "
-              f"{order[0]}'s: {same}")
-    del inputs, b1_outs
+              f"{order[0]}'s: {same}; B2's output: {same2}")
+    del inputs, b1_outs, b2_outs
 
     # B3/B4: checks, and B3's output bit for bit across builds
     outs = {}

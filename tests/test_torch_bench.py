@@ -217,9 +217,6 @@ def test_the_cli_subcommand_runs_the_bench_in_process(capsys):
 
 
 @pytest.mark.parametrize("argv,why", [
-    (["--adjoint"], "item 13"),
-    (["--rng", "rbg"], "item 13"),
-    (["--fused", "--fusedPrecision", "default"], "exact f32"),
     (["--anchor"], "bench_baseline.json"),
 ])
 def test_refused_options_exit_2(capsys, argv, why):
@@ -227,9 +224,42 @@ def test_refused_options_exit_2(capsys, argv, why):
     assert rc == 2 and out == "" and why in err
 
 
+CUT = ["--device", "cpu", "--batch", "64", "--inner", "1", "--rounds", "1"]
+
+
+@pytest.mark.parametrize("argv,rng", [
+    (["--adjoint"], "threefry"),
+    (["--rng", "rbg"], "rbg"),
+    (["--fused", "--fusedPrecision", "default"], "threefry"),
+])
+def test_opt_in_options_run(capsys, argv, rng):
+    """``--adjoint``, ``--rng rbg`` and ``--fusedPrecision default`` run the
+    Merton speed cell; the detail record names the rng asked for and the
+    generator drawn from."""
+    rc, out, err = _run_main(capsys, [*argv, *CUT])
+    assert rc == 0
+    rec = json.loads(out.strip().splitlines()[-1])
+    assert list(rec) == JSON_KEYS and rec["value"] > 0
+    assert f"'rng': '{rng}'" in err and "'generator': 'mt19937'" in err
+
+
+@pytest.mark.parametrize("argv", [["--rng", "rbg"],
+                                  ["--fused", "--fusedPrecision", "default"]])
+def test_subcommand_takes_opt_in_options(capsys, argv):
+    assert tcli.main(["bench", *argv, *CUT]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "merton_global_train_throughput"
+
+
+def test_adjoint_usage_errors():
+    for argv in (["--adjoint", "--parity"], ["--adjoint", "--model", "vg"],
+                 ["--adjoint", "--scheme", "sumlocal2"]):
+        with pytest.raises(SystemExit) as exc:
+            tbench.main([*argv, "--device", "cpu"])
+        assert exc.value.code == 2
+
+
 @pytest.mark.parametrize("argv,why", [
-    (["--rng", "rbg"], "item 13"),
-    (["--fused", "--fusedPrecision", "default"], "exact f32"),
     (["--fused", "--parity"], "--fused applies only"),
     (["--model", "vg", "--sweep", "pallas"], "--sweep applies only"),
 ])

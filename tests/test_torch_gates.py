@@ -142,9 +142,9 @@ def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
-# the fields only the JAX Merton model has: its "table" price mode's
-JAX_ONLY_FIELDS = {"MertonJumpModel": {"table_points", "table_log_m_max"},
-                   "VGModel": set()}
+# the fields only the JAX models have: none since the port's Merton model
+# took the "table" price mode's
+JAX_ONLY_FIELDS = {"MertonJumpModel": set(), "VGModel": set()}
 
 
 def _assert_same_model(ours, theirs):

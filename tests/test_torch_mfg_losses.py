@@ -163,8 +163,9 @@ def test_net_wiring_and_params_round_trip():
 def test_refusals():
     m = tiny(torch_mfg)
     for kw in (dict(fuse_heads=True), dict(compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            TorchMFG(m, "global", device="cpu", **kw)
+        TorchMFG(m, "global", device="cpu", **kw)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TorchMFG(m, "global", device="cpu", compute_dtype="float16")
     with pytest.raises(ValueError, match="scheme"):
         TorchMFG(m, "multistep1", device="cpu")
     ts = TorchMFG(m, "global", device="cpu", scan_chunk=4, **SMALL)

@@ -59,14 +59,14 @@ def test_configs_match_jax():
 
 def test_configs_take_data_parallel():
     """All four configurations take ``data_parallel=True`` (the pipelines
-    run it: tests/test_torch_parallel_pipelines.py); a ``compute_dtype``
-    is what the pricing configurations still refuse (item 13)."""
+    run it: tests/test_torch_parallel_pipelines.py), the pricing ones
+    beside a ``compute_dtype``."""
     for config in (tc.MFGPoAConfig, tc.MFGComparisonConfig, tc.MertonConfig,
                    tc.VGConfig):
         assert config(data_parallel=True).data_parallel
     for config in (tc.MertonConfig, tc.VGConfig):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            config(data_parallel=True, compute_dtype="bfloat16")
+        cfg = config(data_parallel=True, compute_dtype="bfloat16")
+        assert cfg.data_parallel and cfg.compute_dtype == "bfloat16"
 
 
 @pytest.mark.parametrize("pipeline", ["mfg-compare", "mfg-poa"])

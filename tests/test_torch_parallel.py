@@ -10,7 +10,10 @@ i), batch)`` through ``build_loss_from_noise`` with the JAX params
 converted; the mesh loss within 1e-5 and the gradients within 3e-5 as one
 global norm, relative (tests/test_torch_parity.py's tolerances), in the
 un-hoisted Merton global configuration, the hoisted piecewise speed
-configuration and the VG speed configuration.  Against serial (each
+configuration and the VG speed configuration.  Against serial (the
+hoisted speed configuration also through the hand-written adjoint, whose
+gradients the mesh all-reduces after its backward, as JAX's
+test_adjoint_under_shard_map composes its VJP with the mesh) (each
 tolerance no looser than tests/test_parallel.py's): the mesh loss equals
 the mean of the per-shard losses within 1e-6; the gradients within 2e-5
 relative and 1e-7 absolute (1e-6 for the collocated configurations,
@@ -96,7 +99,7 @@ def test_mesh_loss_and_grads_equal_jax(ranks, jax_results, name):
 
 
 @pytest.mark.parametrize("name", ["merton_direct", "merton_cheb",
-                                  "merton_hoisted"])
+                                  "merton_hoisted", "merton_adjoint"])
 def test_mesh_loss_equals_serial_mean(ranks, name):
     """The mesh loss (``make_dp_loss``, and the update's) == the mean of
     the per-shard losses computed serially at the same generators; the
@@ -109,7 +112,8 @@ def test_mesh_loss_equals_serial_mean(ranks, name):
 
 @pytest.mark.parametrize("name,atol", [("merton_direct", 1e-7),
                                        ("merton_cheb", 1e-6),
-                                       ("merton_hoisted", 1e-6)])
+                                       ("merton_hoisted", 1e-6),
+                                       ("merton_adjoint", 1e-6)])
 def test_mesh_grads_equal_serial_grads(ranks, name, atol):
     """One all-reduce of the per-rank gradients == the one-process
     gradient of the mesh-mean loss, the same on every rank: within 1e-6 as

@@ -58,8 +58,14 @@ def test_configs_match_jax(exp):
 
 
 def test_config_refusals():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tc.MertonConfig(compute_dtype="bfloat16")
+    """A bf16 configuration builds; where it asks for the kernel sweep, the
+    pipeline sweeps in plain PyTorch and says why (the kernels compute in
+    f32)."""
+    cfg = tc.MertonConfig(compute_dtype="bfloat16", sweep_impl="pallas")
+    solver, unmet = tp.build_solver(cfg, tp.build_model(cfg), "Global",
+                                    device="cpu")
+    assert solver.sweep_impl == "xla" and solver.compute_dtype == "bfloat16"
+    assert any("compute_dtype" in why for why in unmet)
 
 
 @pytest.mark.parametrize("exp,kw", [

@@ -129,13 +129,25 @@ def test_cuda_request_without_a_card_raises():
 @pytest.mark.parametrize("kw", [
     dict(hoist_z=False),
     dict(compute_dtype="bfloat16"),
-    dict(adjoint=True),
+    dict(adjoint=True, hoist_z=False),
     dict(hoist_gamma=True),
 ])
 def test_unported_configurations_raise(kw):
-    args = dict(HOIST, hidden=(8, 8), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PricingSolver(_model(), "global", **args)
+    """Each configuration builds on the CPU; what the fused kernels do not
+    take raises ValueError under ``fused_rollout=True``, and an unmet
+    precondition of the hand-written adjoint raises on the card, where the
+    CPU warns and falls back to autograd."""
+    args = dict(HOIST, hidden=(8, 8), **kw)
+    if kw.get("adjoint"):
+        with pytest.warns(UserWarning, match="falling back"):
+            PricingSolver(_model(), "global", device="cpu", **args)
+        with pytest.raises(ValueError, match="adjoint=True precondition"):
+            PricingSolver(_model(), "global", device="cuda", **args)
+        return
+    PricingSolver(_model(), "global", device="cpu", **args)
+    with pytest.raises(ValueError, match="fused_rollout=True precondition"):
+        PricingSolver(_model(), "global", device="cpu", fused_rollout=True,
+                      **args)
 
 
 def test_hoist_with_comp_axis_raises():

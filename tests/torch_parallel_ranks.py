@@ -40,6 +40,11 @@ CONFIGS = {
     "merton_hoisted": ("merton", SPEED, {},
                        dict(x_interp="chebyshev", n_cheb=64),
                        dict(hoist=True, hoist_interp="piecewise")),
+    # the same through the hand-written adjoint (solvers/adjoint.py)
+    "merton_adjoint": ("merton", SPEED, {},
+                       dict(x_interp="chebyshev", n_cheb=64),
+                       dict(hoist=True, hoist_interp="piecewise",
+                            adjoint=True)),
     "merton_cheb": ("merton", SPEED, {}, dict(x_interp="chebyshev", n_cheb=8),
                     {}),
     "vg_speed": ("vg", dict(jump_sampler="icdf"),
@@ -150,7 +155,8 @@ def parallel_checks(rank: int, jax_cases: dict) -> dict:
     g = make_generator("cpu", 5)
     # each evaluation draws from fresh shard generators
     shards = lambda: [fold_in(g, i) for i in range(WORLD)]
-    for name in ("merton_direct", "merton_cheb", "merton_hoisted"):
+    for name in ("merton_direct", "merton_cheb", "merton_hoisted",
+                 "merton_adjoint"):
         s = torch_solver(name)
         p = s.init_params(make_generator("cpu", 1, 0))
         loss_fn = s.build_loss(16)
