@@ -164,10 +164,13 @@ Phases, each fatal on failure:
    ``fuse_heads`` against the split heads on the five MFG schemes (loss
    1e-6, gradient 1e-5 relative), with step times, and device ops on the
    global scheme; the head-TF32 instances of B1, B2, B1w and B2w against
-   their plain versions at hidden 21, 20, 64 and 128 (``check_kernels``,
+   their plain versions at hidden 21, 20, 64 and 128 and where B2w's
+   blocks walk two and three tiles (``TF32_CHECKS``, ``check_kernels``,
    the forward step by step on B1's own trajectory), the fused speed path
-   trained on them (its launches the TF32 rows' launches), and their times
-   beside the FP32 instances' in turns (A, B, B, A); and the bench with
+   trained on them at hidden 21, 64 and 128 (its launches the TF32 rows'
+   launches), and their times beside the FP32 instances' in turns (A, B,
+   B, A) at hidden 21 and at HP 32, 64 and 128, with the wide pair's
+   registers and blocks per SM in its rows; and the bench with
    ``--adjoint``, ``--rng rbg`` and ``--fused --fusedPrecision default``,
    each exiting 0 with its launches exact.
 
@@ -349,8 +352,15 @@ ITEM13_LOSS_REL = {"hoist_gamma": 5e-4, "hoist_z=False": 5e-4,
                    "price_mode=table": 5e-4, "bfloat16": 5e-3}
 ADJOINT_LOSS_REL, ADJOINT_GRAD_REL = 1e-6, 3e-5
 FUSE_LOSS_REL, FUSE_GRAD_REL = 1e-6, 1e-5
-TF32_WIDTHS = (21, 20, 64, 128)
-TF32_TIMED = (21, 64, 128)
+# the head-TF32 checks (H, N, batch): full depth at each width class and
+# at 21, and N = 7 where B2w's blocks walk two and three tiles ("walk"); the
+# fused speed path trained on TF32 heads at these widths; the kernels timed
+# at these (the wide pair at HP 32, 64 and 128)
+TF32_CHECKS = ((21, N_STEPS, CHECK_BATCH), (20, N_STEPS, CHECK_BATCH),
+               (64, N_STEPS, CHECK_BATCH), (128, N_STEPS, CHECK_BATCH),
+               (20, 7, "walk"), (128, 7, "walk"))
+TF32_TRAINED = (HIDDEN, 64, 128)
+TF32_TIMED = (21, 32, 64, 128)
 # the bench's opt-in flags, 2 warm-up and 1 timed epoch of 2 steps: the
 # adjoint and --rng rbg on the unfused speed cell (no kernel), the fused
 # cell's select precision (B1/B2 once a step)
@@ -528,40 +538,52 @@ def grad_leaves(gam, y0, tabs):
 ROLLOUT_LEAVES = ("W1", "W2", "W3", "b1", "b2", "b3", "y0", "cc", "pc", "zc")
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled entry
+    (``fwd_kernel<128>``, ``bwd_kernel<128,true>``, ``reduce_partials``):
+    the first length-prefixed name that ends in ``_kernel``."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end():m.end() + int(m.group())]
+        if name.endswith("_kernel") or name == "reduce_partials":
+            args = re.match(r"I((?:L[ib]\d+E)+)",
+                            mangled[m.end() + len(name):])
+            vals = [v if kind == "i" else ("true" if v == "1" else "false")
+                    for kind, v in re.findall(r"L([ib])(\d+)E",
+                                              args.group(1) if args else "")]
+            return name + (f"<{','.join(vals)}>" if vals else "")
+    return mangled
+
+
 def ptxas_lines(log: str):
     """(kernel, line) for each register and spill line of an nvcc -Xptxas
-    -v log, the kernel named from its mangled entry (``fwd_kernel<128>``,
-    ``reduce_partials``)."""
+    -v log, the kernel named by ``kernel_name``."""
     fn = "?"
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"\d+([a-z_]+_kernel|reduce_partials)"
-                          r"(?:I((?:Li\d+E)+))?", entry.group(1))
-            if m is None:
-                fn = entry.group(1)
-            else:
-                widths = re.findall(r"Li(\d+)E", m.group(2) or "")
-                fn = m.group(1) + (f"<{','.join(widths)}>" if widths else "")
+            fn = kernel_name(entry.group(1))
         elif "registers" in line or "spill" in line:
             yield fn, line.replace("ptxas info    : ", "").strip()
 
 
-def occupancy(name: str, *args: int):
+def occupancy(name: str, *args: int, entry: str = None):
     """(dynamic shared bytes per block, resident blocks per SM) of the
     kernel of library ``name`` at the widths ``args``, from its info entry
-    (``sweep_*_info(hidden)``, ``rollout_bwd_info(hidden, pieces)``)."""
+    ``<entry>_info`` (``entry`` defaults to ``name``: ``sweep_*_info(hidden)``,
+    ``rollout_bwd_info(hidden, pieces)``; the wide rollout's head-TF32
+    instances ``rollout_wide_*_tf32_info(hidden)``)."""
     import ctypes
 
     from deepfbsdejsolvers_torch.ops import _build
 
-    fn = getattr(_build.load(name), f"{name}_info")
+    entry = entry or name
+    fn = getattr(_build.load(name), f"{entry}_info")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * len(args) + [
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     smem, blocks = ctypes.c_int(), ctypes.c_int()
     if fn(*args, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
-        fail(f"{name}_info{args} failed")
+        fail(f"{entry}_info{args} failed")
     return smem.value, blocks.value
 
 
@@ -2323,14 +2345,19 @@ def item13_phases(counters) -> tuple:
     # (e) the head-TF32 instances: checks, the fused speed path trained on
     # them, and their times beside the FP32 instances'
     tf32 = {"check": {}, "times": {}, "launches": {}}
-    for h in TF32_WIDTHS:
-        print(f"head TF32 check at H={h}, N={N_STEPS}, B={CHECK_BATCH}:")
-        m, inputs = rollout_case(model, kw, h, N_STEPS, CHECK_BATCH)
-        tf32["check"][h] = check_kernels(
+    for h, n, batch in TF32_CHECKS:
+        if batch == "walk":
+            batch = 5 * R.b2_wide_blocks(2**30, h, True) // 2 * R.wide_tile(
+                h) - 91
+        print(f"head TF32 check at H={h}, N={n}, B={batch}:")
+        m, inputs = rollout_case(model, kw, h, n, batch)
+        result = check_kernels(
             R.FusedRolloutOp(m, h, n_pieces=PIECES,
                              head_precision="default"), m, inputs)
+        if n == N_STEPS:
+            tf32["check"][h] = result
         del inputs
-    for h in (HIDDEN, 64):
+    for h in TF32_TRAINED:
         solver = PricingSolver(model, "global", hidden=(h, h),
                                fused_head_precision="default", **kw)
         params = fresh_params(solver)
@@ -2350,7 +2377,7 @@ def item13_phases(counters) -> tuple:
         if launched != want or not all(map(math.isfinite, losses)):
             fail(f"the head-TF32 speed path launched {launched}, the code "
                  f"implies {want}")
-        tf32["launches"].update(launched)
+        tf32["launches"][h] = launched
     for h in TF32_TIMED:
         m, inputs = rollout_case(model, kw, h, N_STEPS, TRAIN_BATCH)
         ops = {mode: R.FusedRolloutOp(m, h, n_pieces=PIECES,
@@ -2444,19 +2471,22 @@ def main() -> int:
                 print(f"  {name} {fn}: {line}")
                 ptxas.setdefault(f"{name} {fn}", []).append(line)
     occupancy_by = {}
-    for name, widths, pieces in (
-            ("rollout_bwd", (HIDDEN, 8), (PIECES,)),
-            ("rollout_wide_fwd", (32, 64, 128), ()),
-            ("rollout_wide_bwd", (32, 64, 128), ()),
-            ("sweep_fwd", (HIDDEN, 8), ()), ("sweep_bwd", (HIDDEN, 8), ()),
-            ("sweep_wide_fwd", (32, 64, 128), ()),
-            ("sweep_wide_bwd", (32, 64, 128), ())):
+    for name, entry, widths, pieces in (
+            ("rollout_bwd", None, (HIDDEN, 8), (PIECES,)),
+            ("rollout_wide_fwd", None, (32, 64, 128), ()),
+            ("rollout_wide_fwd", "rollout_wide_fwd_tf32", (32, 64, 128), ()),
+            ("rollout_wide_bwd", None, (32, 64, 128), ()),
+            ("rollout_wide_bwd", "rollout_wide_bwd_tf32", (32, 64, 128), ()),
+            ("sweep_fwd", None, (HIDDEN, 8), ()),
+            ("sweep_bwd", None, (HIDDEN, 8), ()),
+            ("sweep_wide_fwd", None, (32, 64, 128), ()),
+            ("sweep_wide_bwd", None, (32, 64, 128), ())):
         for hidden in widths:
-            smem, blocks = occupancy(name, hidden, *pieces)
-            occupancy_by[f"{name}<{hidden}>"] = {"smem": smem,
-                                                 "blocks_per_sm": blocks}
-            print(f"  {name}<{hidden}>: {smem} bytes of shared memory per "
-                  f"block, {blocks} blocks per SM")
+            smem, blocks = occupancy(name, hidden, *pieces, entry=entry)
+            occupancy_by[f"{entry or name}<{hidden}>"] = {
+                "smem": smem, "blocks_per_sm": blocks}
+            print(f"  {entry or name}<{hidden}>: {smem} bytes of shared "
+                  f"memory per block, {blocks} blocks per SM")
 
     # 2. kernel vs plain on ragged batches: full width, then the other
     # width the kernels are built for at a small size, then both where B2's
@@ -2838,7 +2868,9 @@ def main() -> int:
     wide_paths = [f"speed_{h}" for h in WIDE_TRAIN_WIDTHS]
     for k, src, tpu, fn in (
             ("B1w", "rollout_wide_fwd", "pallas_rollout.py:311", "fwd_kernel"),
-            ("B2w", "rollout_wide_bwd", "pallas_rollout.py:352", "bwd_kernel")):
+            ("B2w", "rollout_wide_bwd", "pallas_rollout.py:352",
+             "bwd_kernel")):
+        args = "" if k == "B1w" else ",false"
         kind = k[:2]
         by_width = {}
         for h in WIDE_WIDTHS:
@@ -2851,7 +2883,7 @@ def main() -> int:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "fp32_bound_ms": fp32_ms,
                 **wide_roll_check[(h, WIDE_ROLLOUT_CHECKS[0])][kind],
-                "ptxas": ptxas.get(f"{src} {fn}<{hp}>"),
+                "ptxas": ptxas.get(f"{src} {fn}<{hp}{args}>"),
                 **occupancy_by[f"{src}<{hp}>"]}
             print(f"{k} at H={h} (HP {hp}): {t['ms']:.4f} ms (plain "
                   f"{t['plain_ms']:.3f} ms, tensor-core bound {b_ms:.4f} ms "
@@ -2877,31 +2909,42 @@ def main() -> int:
                 "H": ROLLOUT_F64_CHECK[0], "N": ROLLOUT_F64_CHECK[1],
                 "B": ROLLOUT_F64_CHECK[2], **rollout_f64}
     # the head-TF32 instances: each kernel's row at the hidden width it
-    # trained at (21 for B1/B2, 64 for B1w/B2w), its error from the check
-    # there (B1w/B2w: at hidden 64), every timed width under by_width
-    for k, src, h in (("B1", "rollout_fwd", HIDDEN), ("B2", "rollout_bwd",
-                                                      HIDDEN),
-                      ("B1w", "rollout_wide_fwd", 64),
-                      ("B2w", "rollout_wide_bwd", 64)):
+    # trained at (21 for B1/B2, 64 for B1w/B2w, which also trained at 128),
+    # its error from the check there (B1w/B2w: at hidden 64), every timed
+    # width under by_width, the wide pair's with its ptxas report and its
+    # blocks per SM
+    for k, src, h, fn in (
+            ("B1", "rollout_fwd", HIDDEN, None),
+            ("B2", "rollout_bwd", HIDDEN, None),
+            ("B1w", "rollout_wide_fwd", 64, "fwd_tf32_kernel<{}>"),
+            ("B2w", "rollout_wide_bwd", 64, "bwd_kernel<{},true>")):
         kind = k[:2]
         t = tf32["times"][h][kind]
         err = tf32["check"][h][kind]
         tpu = "pallas_rollout.py:311" if kind == "B1" else \
             "pallas_rollout.py:352"
+        by_path = {f"speed_tf32_{w}": tf32["launches"][w][k]
+                   for w in TF32_TRAINED if k in tf32["launches"][w]}
+        by_width = {w: dict(tf32["times"][w][kind]) for w in TF32_TIMED
+                    if (w in R.KERNEL_WIDTHS) == (k in ("B1", "B2"))}
+        if fn:
+            for w, row in by_width.items():
+                hp = R.wide_class(w)
+                row.update(HP=hp, ptxas=ptxas.get(f"{src} {fn.format(hp)}"),
+                           **occupancy_by[f"{src}_tf32<{hp}>"])
         record.append({
             "name": f"{k} {src} [head tf32]", "route": "cuda",
             "source": f"deepfbsdejsolvers_torch/csrc/{src}.cu",
             "replaces": f"deepfbsdejsolvers_tpu/ops/{tpu}",
-            "launches": tf32["launches"][k],
-            "launches_by_path": {f"speed_tf32_{h}": tf32["launches"][k]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": err["max_abs_err"], "rel_err": err["rel_err"],
             "check": "pass", "ms": t["ms"][0], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "highest_ms": t["highest_ms"][0],
             "turns_ms": {"tf32": t["ms"], "highest": t["highest_ms"]},
             "shape": {"N": N_STEPS, "B": TRAIN_BATCH, "H": h, "P": PIECES},
-            "by_width": {w: tf32["times"][w][kind] for w in TF32_TIMED
-                         if (w in R.KERNEL_WIDTHS) == (k in ("B1", "B2"))}})
+            "by_width": by_width})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": record, "train_step_ms": step_ms,
                       "paths_steps_per_s": rate,

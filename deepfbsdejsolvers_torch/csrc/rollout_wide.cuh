@@ -22,7 +22,7 @@
 // second layer's accumulators come out at the same units.  B1w sums its
 // one product in FP32 in the plain version's order, the hidden units
 // spread over a warp's lanes (its own layout, rollout_wide_fwd.cu: why
-// there).
+// there), in both instances.
 //
 // Scalar work in B2w.  Each path's scalar work (the piece lookup, the
 // Clenshaw evaluations with derivatives, the adjoint recurrence) runs on
@@ -53,7 +53,6 @@ using tc::Mma;
 using tc::THREADS;
 using tc::WARP;
 using tc::WARPS;
-using tc::split_tf32;
 
 // The model constants baked into both kernels: rollout::Consts', but with
 // r·dt where it holds 1 + r·dt, so that y·(1 + r dt) is formed as
@@ -116,23 +115,6 @@ __device__ __forceinline__ float first_unit(float wt, float wx, float wj,
     return tanhf(rollout::first_sum_tf32(wt, wx, wj, b, ti, x, j));
   else
     return tanhf(wt * ti + wx * x + wj * j + b);
-}
-
-// One product of B2w into its accumulators: the split product a·b
-// (tc::mma_split: hi·hi into big, the cross terms into small), or in the
-// head-TF32 mode (TF) its hi·hi term alone: one TF32 pass on operands
-// rounded to TF32, f32 sums.
-template <bool TF>
-__device__ __forceinline__ void head_product(float (&big)[4],
-                                             float (&small)[4],
-                                             const float (&ah)[4],
-                                             const float (&al)[4],
-                                             const float (&bh)[2],
-                                             const float (&bl)[2]) {
-  if constexpr (TF)
-    tc::mma_tf32(big, ah, bh);
-  else
-    tc::mma_split(big, small, ah, al, bh, bl);
 }
 
 // v of paths g and g + 8 of lane ``lane``'s row group (B2w's layout): the

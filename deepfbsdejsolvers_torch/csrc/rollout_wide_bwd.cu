@@ -11,7 +11,8 @@
 //
 // What bounds it on an H100: the Γ head's three H×H products per path and
 // step, Z = h1·W2 (recomputed), S = dp2·W2ᵀ and dW2 += h1ᵀ·dp2 (6H²
-// operations, 3·6H² on the tensor cores in split TF32), and ~28H FP32
+// operations, 3·6H² on the tensor cores in split TF32, 6H² in the TF32
+// instance), and ~28H FP32
 // operations around them with 2H accurate tanhf, beside three Clenshaw
 // evaluations with derivatives and the table sums; it reads 16 bytes.
 // Its products are those of the wide sweep's B4 (sweep_wide_bwd.cu), and
@@ -20,10 +21,24 @@
 // trajectories whose shared errors the loss's cancelling gradient would
 // magnify, and hold the checks in split TF32.
 //
-// The template flag TF is the head-TF32 mode: each of the three products
-// runs its hi·hi term alone (rollout_wide.cuh head_product), h1, dp2 and W2
-// rounded to TF32, f32 sums; db2 stays the sum of the unrounded dp2.
-// Without it the kernel is the split-TF32 one, unchanged.
+// The template flag TF is the head-TF32 instance: every operand rounded to
+// TF32 once, where it is staged (tf32_biased below): W2 as it
+// is loaded, h1 and dp2 as they are written to the staging rows; each
+// product is one TF32 pass (mma.sync m16n8k8) on fragments loaded as they
+// are stored, with no split, no conversion in any inner loop and one
+// accumulator; db2 stays the sum of the unrounded dp2, and dp1 takes the
+// unrounded h1 back from its staged bits.  Freed of the split's second
+// accumulators and lo operands, it holds three blocks an SM at HP 32
+// (bwd_blocks_per_sm); HP 64 and 128 stay at two and one, where shared
+// memory allows no more.  Its block sum dW2 += h1ᵀ·dp2 stays on mma.sync:
+// its loop is ~330 of the ~4000 warp instructions of a step at HP 64
+// (SASS), so wgmma could take no more than that; TF32 wgmma takes both
+// operands K-major, here path-major per unit, while the per-warp products
+// Z and S read the same rows unit-major per path, and a second copy of the
+// tile's h1 and dp2 rows does not fit beside them at HP 128 (223 KB of the
+// 227 KB a block may hold).  The step's time is the 2H accurate tanhf, the
+// epilogues and the latency of 8–16 warps an SM, not the products.
+// Without TF the kernel is the split-TF32 one, unchanged.
 //
 // Design: a fixed number of blocks (ops/rollout.py b2_wide_blocks, as many
 // as are resident on the card, independent of B) each walk their 128-path
@@ -31,7 +46,7 @@
 // adjoint carries (x̄, ȳ) of a path on the lanes of its row group
 // (rollout_wide.cuh).  W2 sits in shared memory once, in f32 (tc_split.cuh
 // w_at: a layout that serves both Z's and S's fragments), and is split into
-// hi and lo as its fragments are read.  Per step:
+// hi and lo as its fragments are read (TF: stored rounded).  Per step:
 //   * the lanes of each path do its scalar work (the piece lookup, the
 //     three Clenshaw evaluations with derivatives, the recurrence), and each
 //     lane takes the x, J and ḡ = ȳ of its row group's two paths;
@@ -73,7 +88,10 @@
 namespace rollout_wide {
 
 using sweep::kahan_add;
+using tc::mma_split;
+using tc::mma_tf32;
 using tc::reduce_rows;
+using tc::split_tf32;
 using tc::sum_lanes_t;
 using tc::w_at;
 
@@ -110,6 +128,63 @@ struct Bwd {
   static constexpr int NCHUNK = 16;
 };
 
+// The head-TF32 instance (the template flag TF) takes every operand of the
+// H×H products rounded to TF32 once, where it is staged, so that no inner
+// loop rounds or splits anything.  W2 and dp2 are stored rounded
+// (rollout::tf32_round).  h1, whose unrounded value B2w still needs for
+// its tanh derivative 1 − h1², is stored as ``tf32_biased``: its bits plus
+// half a TF32 unit.  The tensor cores read an operand register's TF32 bits
+// and drop the 13 below, so they read the biased value as
+// tf32_round(h1) (what cvt.rna.tf32.f32 gives, ties away from zero), and
+// ``tf32_unbiased`` gives h1 back exactly.  h1 = tanh(·) is finite and at
+// most 1 in magnitude, so the integer add never reaches an infinity.
+__device__ __forceinline__ float tf32_biased(float x) {
+  return __uint_as_float(__float_as_uint(x) + 0x1000u);
+}
+
+__device__ __forceinline__ float tf32_unbiased(float x) {
+  return __uint_as_float(__float_as_uint(x) - 0x1000u);
+}
+
+// An operand as an instance stages it: with TF rounded to TF32, else as
+// it is; h1 with TF biased, and back.
+template <bool TF>
+__device__ __forceinline__ float staged(float x) {
+  if constexpr (TF)
+    return rollout::tf32_round(x);
+  else
+    return x;
+}
+
+template <bool TF>
+__device__ __forceinline__ float staged_h1(float x) {
+  if constexpr (TF)
+    return tf32_biased(x);
+  else
+    return x;
+}
+
+template <bool TF>
+__device__ __forceinline__ float2 unstaged_h1(float2 v) {
+  if constexpr (TF)
+    return make_float2(tf32_unbiased(v.x), tf32_unbiased(v.y));
+  else
+    return v;
+}
+
+// The A fragment of k-step k from a warp's staging rows (as h1 and dp2 are
+// written): (path g, unit 8k + 2t) → a0, (g + 8, 8k + 2t) → a1, (g, 8k +
+// 2t + 1) → a2, (g + 8, 8k + 2t + 1) → a3, as stored.
+__device__ __forceinline__ void a_rows(const float* rows, int s0, int s1,
+                                       int k, float (&a)[4]) {
+  const float2 p0 = *reinterpret_cast<const float2*>(rows + s0 + 8 * k);
+  const float2 p1 = *reinterpret_cast<const float2*>(rows + s1 + 8 * k);
+  a[0] = p0.x;
+  a[1] = p1.x;
+  a[2] = p0.y;
+  a[3] = p1.y;
+}
+
 // The split A fragment of k-step k from a warp's staging rows (as h1 and
 // dp2 are written): (path g, unit 8k + 2t) → a0, (g + 8, 8k + 2t) → a1,
 // (g, 8k + 2t + 1) → a2, (g + 8, 8k + 2t + 1) → a3.
@@ -124,10 +199,17 @@ __device__ __forceinline__ void a_from_rows(const float* rows, int s0, int s1,
   split_tf32(p1.y, ah[3], al[3]);
 }
 
-// Two blocks an SM where their shared memory allows it (HP <= 64): the
-// registers are capped to let them in.
+// The blocks an SM holds at once (ops/rollout.py _WIDE_B2_BLOCKS_PER_SM):
+// two where their shared memory allows it (HP <= 64), the registers capped
+// to let them in; the TF32 instance, which carries no second accumulator
+// and no lo operand, three at HP 32.
 template <int HP, bool TF>
-__global__ void __launch_bounds__(THREADS, HP <= 64 ? 2 : 1)
+constexpr int bwd_blocks_per_sm() {
+  return HP == 128 ? 1 : (TF && HP == 32) ? 3 : 2;
+}
+
+template <int HP, bool TF>
+__global__ void __launch_bounds__(THREADS, (bwd_blocks_per_sm<HP, TF>()))
 bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            const float* __restrict__ cc, const float* __restrict__ pc,
            const float* __restrict__ zc, const float* __restrict__ lo,
@@ -168,8 +250,8 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
 
   for (int q = tid; q < HP * HP; q += THREADS) {
     const int row = q / HP, col = q % HP;
-    sm[B::W2S + w_at<HP>(row, col)] =
-        (row < h && col < h) ? __ldg(w2 + row * h + col) : 0.0f;
+    sm[B::W2S + w_at<HP>(row, col)] = staged<TF>(
+        (row < h && col < h) ? __ldg(w2 + row * h + col) : 0.0f);
   }
   load_first_layer<HP>(sm + B::L1, w1, b1, h);
   for (int q = tid; q < HP; q += THREADS) {
@@ -233,42 +315,57 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
       row_pair(x, lane, xe);
       row_pair(jv, lane, je);
       row_pair(gbar, lane, ge);
-      // h1 of the warp's paths into its staging rows
+      // h1 of the warp's paths into its staging rows (TF: biased, read by
+      // the tensor cores as rounded to TF32)
 #pragma unroll
       for (int k = 0; k < NB; ++k) {
         const float4 p = l1[8 * k], q = l1[8 * k + 1];
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           *reinterpret_cast<float2*>(h1w + (r ? s1 : s0) + 8 * k) =
-              make_float2(
-                  first_unit<TF>(p.x, p.z, q.x, q.z, ti, xe[r], je[r]),
-                  first_unit<TF>(p.y, p.w, q.y, q.w, ti, xe[r], je[r]));
+              make_float2(staged_h1<TF>(first_unit<TF>(p.x, p.z, q.x, q.z, ti,
+                                                       xe[r], je[r])),
+                          staged_h1<TF>(first_unit<TF>(p.y, p.w, q.y, q.w, ti,
+                                                       xe[r], je[r])));
       }
 
-      // Z = h1·W2 + b2 by groups of NG n-tiles; h2, dp2, and the sums of
-      // dW3 and db2 over the warp's paths
+      // Z = h1·W2 + b2 by groups of NG n-tiles (the split's hi·hi terms
+      // in zb, its cross terms in zs; TF: one pass into zb); h2, dp2, and
+      // the sums of dW3 and db2 over the warp's paths
 #pragma unroll 1
       for (int n0 = 0; n0 < NB; n0 += NG) {
-        float zb[NG][4], zs[NG][4];
+        float zb[NG][4], zs[TF ? 1 : NG][4];
 #pragma unroll
         for (int q = 0; q < NG; ++q)
 #pragma unroll
           for (int v = 0; v < 4; ++v) {
             zb[q][v] = 0.0f;
-            zs[q][v] = 0.0f;
+            if constexpr (!TF) zs[q][v] = 0.0f;
           }
 #pragma unroll
         for (int k = 0; k < NB; ++k) {
-          float ah[4], al[4];
-          a_from_rows(h1w, s0, s1, k, ah, al);
+          if constexpr (TF) {
+            float a[4];
+            a_rows(h1w, s0, s1, k, a);
 #pragma unroll
-          for (int q = 0; q < NG; ++q) {
-            const float2 w = *reinterpret_cast<const float2*>(
-                sm + B::W2S + (k * NB + n0 + q) * 64 + oz);
-            float bh[2], bl[2];
-            split_tf32(w.x, bh[0], bl[0]);
-            split_tf32(w.y, bh[1], bl[1]);
-            head_product<TF>(zb[q], zs[q], ah, al, bh, bl);
+            for (int q = 0; q < NG; ++q) {
+              const float2 w = *reinterpret_cast<const float2*>(
+                  sm + B::W2S + (k * NB + n0 + q) * 64 + oz);
+              const float b[2] = {w.x, w.y};
+              mma_tf32(zb[q], a, b);
+            }
+          } else {
+            float ah[4], al[4];
+            a_from_rows(h1w, s0, s1, k, ah, al);
+#pragma unroll
+            for (int q = 0; q < NG; ++q) {
+              const float2 w = *reinterpret_cast<const float2*>(
+                  sm + B::W2S + (k * NB + n0 + q) * 64 + oz);
+              float bh[2], bl[2];
+              split_tf32(w.x, bh[0], bl[0]);
+              split_tf32(w.y, bh[1], bl[1]);
+              mma_split(zb[q], zs[q], ah, al, bh, bl);
+            }
           }
         }
         // red: dW3 at units u, u + 1 of each n-tile, then db2 likewise
@@ -281,15 +378,21 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
           float h2[2][2], dp[2][2];
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            h2[r][0] = tanhf(zb[q][2 * r] + zs[q][2 * r] + bk.x);
-            h2[r][1] = tanhf(zb[q][2 * r + 1] + zs[q][2 * r + 1] + bk.y);
+            if constexpr (TF) {
+              h2[r][0] = tanhf(zb[q][2 * r] + bk.x);
+              h2[r][1] = tanhf(zb[q][2 * r + 1] + bk.y);
+            } else {
+              h2[r][0] = tanhf(zb[q][2 * r] + zs[q][2 * r] + bk.x);
+              h2[r][1] = tanhf(zb[q][2 * r + 1] + zs[q][2 * r + 1] + bk.y);
+            }
             dp[r][0] = (wk.x * ge[r]) * (1.0f - h2[r][0] * h2[r][0]);
             dp[r][1] = (wk.y * ge[r]) * (1.0f - h2[r][1] * h2[r][1]);
           }
+          // staged for the products (TF: rounded); db2 sums them unrounded
           *reinterpret_cast<float2*>(dpw + s0 + 8 * (n0 + q)) =
-              make_float2(dp[0][0], dp[0][1]);
+              make_float2(staged<TF>(dp[0][0]), staged<TF>(dp[0][1]));
           *reinterpret_cast<float2*>(dpw + s1 + 8 * (n0 + q)) =
-              make_float2(dp[1][0], dp[1][1]);
+              make_float2(staged<TF>(dp[1][0]), staged<TF>(dp[1][1]));
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             red[2 * q + j] = ge[0] * h2[0][j] + ge[1] * h2[1][j];
@@ -310,25 +413,36 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
       float gx[2] = {0.0f, 0.0f};
 #pragma unroll 1
       for (int n0 = 0; n0 < NB; n0 += NG) {
-        float sb[NG][4], ss[NG][4];
+        float sb[NG][4], ss[TF ? 1 : NG][4];
 #pragma unroll
         for (int q = 0; q < NG; ++q)
 #pragma unroll
           for (int v = 0; v < 4; ++v) {
             sb[q][v] = 0.0f;
-            ss[q][v] = 0.0f;
+            if constexpr (!TF) ss[q][v] = 0.0f;
           }
 #pragma unroll
         for (int k = 0; k < NB; ++k) {
-          float ah[4], al[4];
-          a_from_rows(dpw, s0, s1, k, ah, al);
+          if constexpr (TF) {
+            float a[4];
+            a_rows(dpw, s0, s1, k, a);
 #pragma unroll
-          for (int q = 0; q < NG; ++q) {
-            const float* blk = sm + B::W2S + ((n0 + q) * NB + k) * 64;
-            float bh[2], bl[2];
-            split_tf32(blk[os0], bh[0], bl[0]);
-            split_tf32(blk[os1], bh[1], bl[1]);
-            head_product<TF>(sb[q], ss[q], ah, al, bh, bl);
+            for (int q = 0; q < NG; ++q) {
+              const float* blk = sm + B::W2S + ((n0 + q) * NB + k) * 64;
+              const float b[2] = {blk[os0], blk[os1]};
+              mma_tf32(sb[q], a, b);
+            }
+          } else {
+            float ah[4], al[4];
+            a_from_rows(dpw, s0, s1, k, ah, al);
+#pragma unroll
+            for (int q = 0; q < NG; ++q) {
+              const float* blk = sm + B::W2S + ((n0 + q) * NB + k) * 64;
+              float bh[2], bl[2];
+              split_tf32(blk[os0], bh[0], bl[0]);
+              split_tf32(blk[os1], bh[1], bl[1]);
+              mma_split(sb[q], ss[q], ah, al, bh, bl);
+            }
           }
         }
         // red: entry (2q + j)·3 + s, s = db1, x·dp1, J·dp1 at unit u + j
@@ -337,15 +451,22 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
         for (int q = 0; q < NG; ++q) {
           const float4 p = l1[8 * (n0 + q)];  // W1[x] at u, u + 1: p.z, p.w
           const float2 hv[2] = {
-              *reinterpret_cast<const float2*>(h1w + s0 + 8 * (n0 + q)),
-              *reinterpret_cast<const float2*>(h1w + s1 + 8 * (n0 + q))};
+              unstaged_h1<TF>(*reinterpret_cast<const float2*>(
+                  h1w + s0 + 8 * (n0 + q))),
+              unstaged_h1<TF>(*reinterpret_cast<const float2*>(
+                  h1w + s1 + 8 * (n0 + q)))};
           float dp1[2][2];
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            dp1[r][0] = (sb[q][2 * r] + ss[q][2 * r]) *
-                        (1.0f - hv[r].x * hv[r].x);
-            dp1[r][1] = (sb[q][2 * r + 1] + ss[q][2 * r + 1]) *
-                        (1.0f - hv[r].y * hv[r].y);
+            if constexpr (TF) {
+              dp1[r][0] = sb[q][2 * r] * (1.0f - hv[r].x * hv[r].x);
+              dp1[r][1] = sb[q][2 * r + 1] * (1.0f - hv[r].y * hv[r].y);
+            } else {
+              dp1[r][0] = (sb[q][2 * r] + ss[q][2 * r]) *
+                          (1.0f - hv[r].x * hv[r].x);
+              dp1[r][1] = (sb[q][2 * r + 1] + ss[q][2 * r + 1]) *
+                          (1.0f - hv[r].y * hv[r].y);
+            }
             gx[r] += p.z * dp1[r][0];
             gx[r] += p.w * dp1[r][1];
           }
@@ -403,25 +524,43 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
         for (int k = 0; k < B::TILE / 8; ++k) {
           const float* hr = sm + B::H1S + (8 * k + t) * LDS;
           const float* dr = sm + B::DP2S + (8 * k + t) * LDS;
-          float ah[TM][4], al[TM][4];
+          if constexpr (TF) {
+            float a[TM][4];
 #pragma unroll
-          for (int i2 = 0; i2 < TM; ++i2) {
-            const int r0 = 16 * (TM * wm + i2) + gq;
-            split_tf32(hr[r0], ah[i2][0], al[i2][0]);
-            split_tf32(hr[r0 + 8], ah[i2][1], al[i2][1]);
-            split_tf32(hr[4 * LDS + r0], ah[i2][2], al[i2][2]);
-            split_tf32(hr[4 * LDS + r0 + 8], ah[i2][3], al[i2][3]);
-          }
+            for (int i2 = 0; i2 < TM; ++i2) {
+              const int r0 = 16 * (TM * wm + i2) + gq;
+              a[i2][0] = hr[r0];
+              a[i2][1] = hr[r0 + 8];
+              a[i2][2] = hr[4 * LDS + r0];
+              a[i2][3] = hr[4 * LDS + r0 + 8];
+            }
 #pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int c0 = 8 * (TN * wn + j) + gq;
-            float bh[2], bl[2];
-            split_tf32(dr[c0], bh[0], bl[0]);
-            split_tf32(dr[4 * LDS + c0], bh[1], bl[1]);
+            for (int j = 0; j < TN; ++j) {
+              const int c0 = 8 * (TN * wn + j) + gq;
+              const float b[2] = {dr[c0], dr[4 * LDS + c0]};
 #pragma unroll
-            for (int i2 = 0; i2 < TM; ++i2)
-              head_product<TF>(f[i2][j], f[i2][j], ah[i2], al[i2], bh,
-                               bl);
+              for (int i2 = 0; i2 < TM; ++i2) mma_tf32(f[i2][j], a[i2], b);
+            }
+          } else {
+            float ah[TM][4], al[TM][4];
+#pragma unroll
+            for (int i2 = 0; i2 < TM; ++i2) {
+              const int r0 = 16 * (TM * wm + i2) + gq;
+              split_tf32(hr[r0], ah[i2][0], al[i2][0]);
+              split_tf32(hr[r0 + 8], ah[i2][1], al[i2][1]);
+              split_tf32(hr[4 * LDS + r0], ah[i2][2], al[i2][2]);
+              split_tf32(hr[4 * LDS + r0 + 8], ah[i2][3], al[i2][3]);
+            }
+#pragma unroll
+            for (int j = 0; j < TN; ++j) {
+              const int c0 = 8 * (TN * wn + j) + gq;
+              float bh[2], bl[2];
+              split_tf32(dr[c0], bh[0], bl[0]);
+              split_tf32(dr[4 * LDS + c0], bh[1], bl[1]);
+#pragma unroll
+              for (int i2 = 0; i2 < TM; ++i2)
+                mma_split(f[i2][j], f[i2][j], ah[i2], al[i2], bh, bl);
+            }
           }
         }
 #pragma unroll
@@ -527,13 +666,27 @@ cudaError_t allow_smem() {
                               (int)(sizeof(float) * Bwd<HP>::SIZE));
 }
 
-template <int HP>
+template <int HP, bool TF>
 cudaError_t info_bwd(int* smem, int* blocks_per_sm) {
   *smem = (int)(sizeof(float) * Bwd<HP>::SIZE);
-  const cudaError_t err = allow_smem<HP, false>();
+  const cudaError_t err = allow_smem<HP, TF>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, bwd_kernel<HP, false>, THREADS, *smem);
+      blocks_per_sm, bwd_kernel<HP, TF>, THREADS, *smem);
+}
+
+template <bool TF>
+int info_bwd_at(int hidden, int* smem, int* blocks_per_sm) {
+  switch (wide_width_class(hidden)) {
+    case 32:
+      return (int)info_bwd<32, TF>(smem, blocks_per_sm);
+    case 64:
+      return (int)info_bwd<64, TF>(smem, blocks_per_sm);
+    case 128:
+      return (int)info_bwd<128, TF>(smem, blocks_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int HP, bool TF>
@@ -607,18 +760,14 @@ extern "C" int rollout_wide_bwd(const float* dw, const float* jr,
 }
 
 // The kernel's dynamic shared memory per block and its resident blocks per
-// SM at the width class of ``hidden`` (chip_smoke.py reports them).
+// SM at the width class of ``hidden`` (chip_smoke.py reports them), of the
+// split instance and of the head-TF32 one.
 extern "C" int rollout_wide_bwd_info(int hidden, int* smem,
                                      int* blocks_per_sm) {
-  using namespace rollout_wide;
-  switch (wide_width_class(hidden)) {
-    case 32:
-      return (int)info_bwd<32>(smem, blocks_per_sm);
-    case 64:
-      return (int)info_bwd<64>(smem, blocks_per_sm);
-    case 128:
-      return (int)info_bwd<128>(smem, blocks_per_sm);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return rollout_wide::info_bwd_at<false>(hidden, smem, blocks_per_sm);
+}
+
+extern "C" int rollout_wide_bwd_tf32_info(int hidden, int* smem,
+                                          int* blocks_per_sm) {
+  return rollout_wide::info_bwd_at<true>(hidden, smem, blocks_per_sm);
 }

@@ -11,8 +11,9 @@
 // takes 2H² + 10H operations with 2H accurate tanhf, beside three degree-7
 // Clenshaw evaluations and the walk, over 16 bytes of noise and residuals.
 //
-// Why its product h1·W2 stays in FP32 (B2w takes its three on the tensor
-// cores): this kernel sets every path's trajectory, and the checks hold
+// Why the FP32 instance's product h1·W2 stays in FP32 (B2w takes its three
+// on the tensor cores): this kernel sets every path's trajectory, and the
+// checks hold
 // the loss's gradient, a sum over paths of (y_N − g(x_N)) times the
 // path's sensitivities that largely cancels, to the plain version's.  The
 // plain version's f32 forward drifts from a float64 evaluation by errors
@@ -41,10 +42,29 @@
 // takes any N and B: the ragged last block's idle paths compute on zero
 // noise and write nothing.
 //
-// The template flag TF is the head-TF32 mode (rollout_common.cuh
-// tf32_round): h1 is staged and W2 loaded rounded to TF32, and the FP32
-// loop sums their exact products in the same order.  Without it the kernel
-// is the FP32 one, unchanged.
+// The head-TF32 instance (fwd_tf32_kernel, head_tf32 != 0) keeps this
+// order too: W2 loaded and h1 staged rounded to TF32 (the first layer
+// summed as first_sum_tf32 sums it, so h1 is the plain version's bits),
+// the products of two TF32 values exact in f32, the sums the plain
+// version's.  It gains by register tiling: twice the FP32 instance's paths
+// a warp (LanesTf32), so each W2 value read from shared memory serves
+// twice the paths, with its loop reordered so that the extra paths cost
+// accumulators, not staged h1 quads, in registers (NVIDIA H100 80GB HBM3,
+// 700 W, kernel_ab.py --wide-rollout, B = 2^17, N = 50: 1.02 → 0.97 ms at
+// HP 32, 2.33 → 2.19 at 64, 8.34 → 6.62 at 128).
+//
+// Its product on the tensor cores (B2w's layout, h1 rounded in registers
+// as the A operand, one TF32 mma.sync pass, h2 staged 32 units at a time
+// for the in-order Γ sum) ran 0.54, 1.04 and 2.28 ms there and missed the
+// B1 + B2 gradient check at hidden 20: global 1.02e-4, per leaf up to
+// 2.9e-4 (y0), against 2.6e-6 for this order (tolerance 1e-4).  Its
+// trajectories held step by step (Σ of the local errors 9.3e-6) and the
+// loss held (2.5e-7); the gradient, which cancels, did not.  The tensor
+// cores' sums truncate where the plain version's f32 FMAs round to
+// nearest, shifting every path's Z toward zero alike; emulated on the CPU
+// (tests/test_torch_rollout_tf32.py) a sum of the same order that rounds
+// to nearest holds, one that truncates misses, and keeping the plain order
+// at step 0 alone, where the paths share their inputs, does not save it.
 #include "rollout_wide.cuh"
 
 namespace rollout_wide {
@@ -106,7 +126,7 @@ __device__ __forceinline__ void gather_paths(float v, float (&out)[P]) {
 // h1[p][u] = tanh(t·W1[t, k] + x_p·W1[x, k] + J_p·W1[J, k] + b1[k]) at the
 // lane's units, in the sum order of rollout::first_layer, written to the
 // warp's staging rows ``stage`` (P rows of HP); returns them too.
-template <int HP, bool TF>
+template <int HP>
 __device__ __forceinline__ void first_layer(
     const Units<Lanes<HP>::U>& w, float ti, const float (&x)[Lanes<HP>::P],
     const float (&j)[Lanes<HP>::P], int lane,
@@ -116,13 +136,9 @@ __device__ __forceinline__ void first_layer(
   for (int u = 0; u < L::U; ++u)
 #pragma unroll
     for (int p = 0; p < L::P; ++p) {
-      h1[p][u] = TF ? tanhf(rollout::first_sum_tf32(w.wt[u], w.wx[u],
-                                                     w.wj[u], w.b1[u], ti,
-                                                     x[p], j[p]))
-                    : tanhf(w.wt[u] * ti + w.wx[u] * x[p] + w.wj[u] * j[p] +
-                            w.b1[u]);
-      stage[p * HP + lane + WARP * u] = TF ? rollout::tf32_round(h1[p][u])
-                                           : h1[p][u];
+      h1[p][u] = tanhf(w.wt[u] * ti + w.wx[u] * x[p] + w.wj[u] * j[p] +
+                       w.b1[u]);
+      stage[p * HP + lane + WARP * u] = h1[p][u];
     }
 }
 
@@ -164,7 +180,7 @@ __device__ __forceinline__ void second_layer(
 
 // W2 and b2 of width h into shared memory in ``Lanes``' layout, zero past
 // h.
-template <int HP, bool TF>
+template <int HP>
 __device__ __forceinline__ void load_weights(float* sm,
                                              const float* __restrict__ w2,
                                              const float* __restrict__ b2,
@@ -173,7 +189,7 @@ __device__ __forceinline__ void load_weights(float* sm,
   for (int q = threadIdx.x; q < HP * HP; q += blockDim.x) {
     const int row = q / HP, col = q % HP;
     const float v = (row < h && col < h) ? __ldg(w2 + row * h + col) : 0.0f;
-    sm[L::W2 + row * L::LDW + col] = TF ? rollout::tf32_round(v) : v;
+    sm[L::W2 + row * L::LDW + col] = v;
   }
   for (int q = threadIdx.x; q < HP; q += blockDim.x)
     sm[L::B2 + q] = q < h ? __ldg(b2 + q) : 0.0f;
@@ -188,7 +204,7 @@ struct Fwd {
   static constexpr int SIZE = STAGE + WARPS * Lanes<HP>::P * HP;
 };
 
-template <int HP, bool TF>
+template <int HP>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            const float* __restrict__ cc, const float* __restrict__ pc,
@@ -210,7 +226,7 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   const bool active = b < batch;
   using F = Fwd<HP>;
   float* stage = sm + F::STAGE + warp * P * HP;
-  load_weights<HP, TF>(sm, w2, b2, h);
+  load_weights<HP>(sm, w2, b2, h);
   for (int q = threadIdx.x; q < HP; q += THREADS)
     sm[F::W3 + q] = q < h ? __ldg(w3 + q) : 0.0f;
   Units<U> wu;
@@ -235,7 +251,7 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
     float xp[P], jp[P], h1[P][U], z[P][U];
     gather_paths<P>(x, xp);
     gather_paths<P>(jv, jp);
-    first_layer<HP, TF>(wu, c.time_scale * (float)i, xp, jp, lane, h1, stage);
+    first_layer<HP>(wu, c.time_scale * (float)i, xp, jp, lane, h1, stage);
     __syncwarp();
     second_layer<HP>(sm, wu, lane, stage, z);
     __syncwarp();  // every lane has read h1: the rows take h2
@@ -272,12 +288,158 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   }
 }
 
-// The shared memory above 48 KB needs the kernel's opt-in before a launch.
+// The head-TF32 instance: the FP32 instance's lanes (``Lanes``: lane l owns
+// the U = HP / 32 units l + 32u), but twice its paths a warp, P = 32 / U
+// (TILE = 8·P a block, SPAN = 32 / P lanes a path), so that each W2 value
+// read from shared memory serves twice the paths; W2 loaded and h1 staged
+// rounded to TF32.  Z's loop takes the four W2 rows of a quad of h once
+// (4U values in registers) and the paths one at a time, one float4 of h1
+// each, so its registers hold the P·U accumulators, not P float4s of h1.
+// Each accumulator still sums over h in order from zero, the bias last:
+// the plain version's rounding.
+template <int HP>
+struct LanesTf32 {
+  static constexpr int U = HP / WARP;
+  static constexpr int P = 32 / U;
+  static constexpr int TILE = WARPS * P;
+  static constexpr int SPAN = WARP / P;
+  // W2 (rows of LDW) | W3 | per warp its P staging rows of HP
+  static constexpr int LDW = Lanes<HP>::LDW;
+  static constexpr int W3 = Lanes<HP>::B2;
+  static constexpr int STAGE = W3 + HP;
+  static constexpr int SIZE = STAGE + WARPS * P * HP;
+};
+
+template <int HP>
+__global__ void __launch_bounds__(THREADS)
+fwd_tf32_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
+                const float* __restrict__ cc, const float* __restrict__ pc,
+                const float* __restrict__ zc, const float* __restrict__ lo,
+                const float* __restrict__ hi, const float* __restrict__ w1,
+                const float* __restrict__ b1, const float* __restrict__ w2,
+                const float* __restrict__ b2, const float* __restrict__ w3,
+                const float* __restrict__ y0, float* __restrict__ xn,
+                float* __restrict__ yn, float* __restrict__ xs,
+                float* __restrict__ ys, int n, int batch, int np, int h,
+                Consts c, float x0) {
+  using L = LanesTf32<HP>;
+  constexpr int P = L::P, U = L::U;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
+  const bool writer = lane % L::SPAN == 0;
+  const int b = blockIdx.x * L::TILE + warp * P + lane / L::SPAN;
+  const bool active = b < batch;
+  float* stage = sm + L::STAGE + warp * P * HP;
+  for (int q = threadIdx.x; q < HP * HP; q += THREADS) {
+    const int row = q / HP, col = q % HP;
+    const float v = (row < h && col < h) ? __ldg(w2 + row * h + col) : 0.0f;
+    sm[row * L::LDW + col] = rollout::tf32_round(v);
+  }
+  for (int q = threadIdx.x; q < HP; q += THREADS)
+    sm[L::W3 + q] = q < h ? __ldg(w3 + q) : 0.0f;
+  Units<U> wu;
+  wu.load(w1, b1, b2, w3, h, lane);
+  __syncthreads();
+
+  const bool save = xs != nullptr;
+  float x = x0;
+  float y = __ldg(y0);
+  for (int i = 0; i < n; ++i) {
+    const size_t off = (size_t)i * batch + b;
+    float dwr = 0.0f, jv = 0.0f;
+    if (active) {
+      dwr = __ldg(dw + off);
+      jv = __ldg(jr + off);
+      if (save && writer) xs[off] = x;
+    }
+    const Piece pk = rollout::locate(x, __ldg(lo + i), __ldg(hi + i), np);
+    const size_t row = ((size_t)i * np + pk.k) * D;
+    const float comp = rollout::clenshaw(cc + row, pk.t);
+    const float ti = c.time_scale * (float)i;
+
+    // h1 of the warp's paths at this lane's units, staged rounded
+    float xp[P], jp[P];
+    gather_paths<P>(x, xp);
+    gather_paths<P>(jv, jp);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        stage[p * HP + lane + WARP * u] =
+            rollout::tf32_round(tanhf(rollout::first_sum_tf32(
+                wu.wt[u], wu.wx[u], wu.wj[u], wu.b1[u], ti, xp[p], jp[p])));
+    __syncwarp();
+    // Z = h1·W2 + b2 at the lane's units, in order over h
+    float z[P][U];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int u = 0; u < U; ++u) z[p][u] = 0.0f;
+#pragma unroll 1
+    for (int q = 0; q < HP / 4; ++q) {
+      float wv[4][U];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          wv[j][u] = sm[(4 * q + j) * L::LDW + lane + WARP * u];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float4 hv = quad(stage + p * HP, q);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          z[p][u] += hv.x * wv[0][u];
+          z[p][u] += hv.y * wv[1][u];
+          z[p][u] += hv.z * wv[2][u];
+          z[p][u] += hv.w * wv[3][u];
+        }
+      }
+    }
+    __syncwarp();  // every lane has read h1: the rows take h2
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        stage[p * HP + lane + WARP * u] = tanhf(z[p][u] + wu.b2[u]);
+    __syncwarp();
+    // Γ of this lane's path, over the outputs in order
+    float gam = 0.0f;
+    const float* h2 = stage + (lane / L::SPAN) * HP;
+#pragma unroll 4
+    for (int q = 0; q < HP / 4; ++q) {
+      const float4 hq = quad(h2, q), wq = quad(sm + L::W3, q);
+      gam += hq.x * wq.x;
+      gam += hq.y * wq.y;
+      gam += hq.z * wq.z;
+      gam += hq.w * wq.w;
+    }
+    __syncwarp();  // the staging rows are free for the next step
+
+    y = y + y * c.r_dt + gam - comp;
+    y = y + rollout::clenshaw(zc + row, pk.t) * dwr;
+    const float av = rollout::clenshaw(pc + row, pk.t);
+    if (save && writer && active) ys[off] = y;
+    const float e = 1.0f + rollout::expm1_acc(c.drift + c.sigma * dwr + jv);
+    x = x * e + (c.a_lin * fabsf(y - av)) * c.dt;
+  }
+  if (writer && active) {
+    xn[b] = x;
+    yn[b] = y;
+  }
+}
+
+// The shared memory above 48 KB needs the kernels' opt-in before a launch.
 template <int HP, bool TF>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(fwd_kernel<HP, TF>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(sizeof(float) * Fwd<HP>::SIZE));
+  if constexpr (TF)
+    return cudaFuncSetAttribute(fwd_tf32_kernel<HP>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)(sizeof(float) * LanesTf32<HP>::SIZE));
+  else
+    return cudaFuncSetAttribute(fwd_kernel<HP>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)(sizeof(float) * Fwd<HP>::SIZE));
 }
 
 template <int HP, bool TF>
@@ -290,20 +452,48 @@ cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
                        float x0, cudaStream_t stream) {
   const cudaError_t err = allow_smem<HP, TF>();
   if (err != cudaSuccess) return err;
-  const int blocks = (batch + Lanes<HP>::TILE - 1) / Lanes<HP>::TILE;
-  fwd_kernel<HP, TF><<<blocks, THREADS, sizeof(float) * Fwd<HP>::SIZE,
-                   stream>>>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2, w3,
-                             y0, xn, yn, xs, ys, n, batch, np, h, c, x0);
+  if constexpr (TF) {
+    using L = LanesTf32<HP>;
+    const int blocks = (batch + L::TILE - 1) / L::TILE;
+    fwd_tf32_kernel<HP><<<blocks, THREADS, sizeof(float) * L::SIZE,
+                          stream>>>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2,
+                                    b2, w3, y0, xn, yn, xs, ys, n, batch, np,
+                                    h, c, x0);
+  } else {
+    const int blocks = (batch + Lanes<HP>::TILE - 1) / Lanes<HP>::TILE;
+    fwd_kernel<HP><<<blocks, THREADS, sizeof(float) * Fwd<HP>::SIZE,
+                     stream>>>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
+                               w3, y0, xn, yn, xs, ys, n, batch, np, h, c,
+                               x0);
+  }
   return cudaGetLastError();
 }
 
-template <int HP>
+template <int HP, bool TF>
 cudaError_t info_fwd(int* smem, int* blocks_per_sm) {
-  *smem = (int)(sizeof(float) * Fwd<HP>::SIZE);
-  const cudaError_t err = allow_smem<HP, false>();
+  *smem = (int)(sizeof(float) * (TF ? LanesTf32<HP>::SIZE : Fwd<HP>::SIZE));
+  const cudaError_t err = allow_smem<HP, TF>();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fwd_kernel<HP, false>, THREADS, *smem);
+  if constexpr (TF)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fwd_tf32_kernel<HP>, THREADS, *smem);
+  else
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fwd_kernel<HP>, THREADS, *smem);
+}
+
+template <bool TF>
+int info_fwd_at(int hidden, int* smem, int* blocks_per_sm) {
+  switch (wide_width_class(hidden)) {
+    case 32:
+      return (int)info_fwd<32, TF>(smem, blocks_per_sm);
+    case 64:
+      return (int)info_fwd<64, TF>(smem, blocks_per_sm);
+    case 128:
+      return (int)info_fwd<128, TF>(smem, blocks_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rollout_wide
@@ -349,18 +539,14 @@ extern "C" int rollout_wide_fwd(const float* dw, const float* jr,
 }
 
 // The kernel's dynamic shared memory per block and its resident blocks per
-// SM at the width class of ``hidden`` (chip_smoke.py reports them).
+// SM at the width class of ``hidden`` (chip_smoke.py reports them), of the
+// FP32 instance and of the head-TF32 one.
 extern "C" int rollout_wide_fwd_info(int hidden, int* smem,
                                      int* blocks_per_sm) {
-  using namespace rollout_wide;
-  switch (wide_width_class(hidden)) {
-    case 32:
-      return (int)info_fwd<32>(smem, blocks_per_sm);
-    case 64:
-      return (int)info_fwd<64>(smem, blocks_per_sm);
-    case 128:
-      return (int)info_fwd<128>(smem, blocks_per_sm);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return rollout_wide::info_fwd_at<false>(hidden, smem, blocks_per_sm);
+}
+
+extern "C" int rollout_wide_fwd_tf32_info(int hidden, int* smem,
+                                          int* blocks_per_sm) {
+  return rollout_wide::info_fwd_at<true>(hidden, smem, blocks_per_sm);
 }

@@ -33,8 +33,10 @@ Each kernel has two instances, chosen by ``head_precision``: "highest"
 (the default), the Γ head in f32 throughout; and "default", what the JAX
 package's DEFAULT precision of an f32 dot is on this card, one TF32 pass:
 every operand of the head's H×H products (h1·W2 forward and recomputed,
-dp2·W2ᵀ and h1ᵀ·dp2 backward) rounded to TF32, the sums in f32.  The plain
-version applies the same rounding (``ops/numerics.tf32_matmul``).  Each
+dp2·W2ᵀ and h1ᵀ·dp2 backward) rounded to TF32, the sums in f32 (the wide
+B2's "default" instance runs its products in one TF32 pass on the tensor
+cores).  The plain version applies the same rounding
+(``ops/numerics.tf32_matmul``).  Each
 wrapper counts its launches in ``launches`` and those of the "default"
 instance also in ``launches_tf32``.
 """
@@ -67,13 +69,15 @@ _B2_MAX_BLOCKS = 4 * 132
 # and sweep take two equal tanh layers up to 128 wide.  The width classes
 # of the wide kernels of both (csrc/tc_split.cuh), the paths a block of the
 # wide B2 carries at every class (eight warps of one m16 tile), and its
-# resident blocks per SM of an H100 by class (its shared memory and
-# registers: csrc/rollout_wide_bwd.cu), which bound the blocks it
+# resident blocks per SM of an H100 by class and instance, FP32 (split
+# TF32) and head-TF32 (its shared memory and registers:
+# csrc/rollout_wide_bwd.cu bwd_blocks_per_sm), which bound the blocks it
 # launches.
 ROLLOUT_MAX_WIDTH = 128
 _WIDE_CLASSES = (32, 64, 128)
 _WIDE_TILE = 128
-_WIDE_B2_BLOCKS_PER_SM = {32: 2, 64: 2, 128: 1}
+_WIDE_B2_BLOCKS_PER_SM = {(32, False): 2, (64, False): 2, (128, False): 1,
+                          (32, True): 3, (64, True): 2, (128, True): 1}
 _SMS = 132
 # The Γ head's precisions of the fused rollout: the JAX package's names.
 HEAD_PRECISIONS = ("highest", "default")
@@ -119,7 +123,8 @@ def wide_class(h: int) -> int:
 def wide_tile(h: int) -> int:
     """Paths per block of the wide B2 at hidden width ``h``: eight warps of
     one m16 tile of 16 paths each, at every width class (the wide B1's
-    blocks take 16·32·8 / HP paths, csrc/rollout_wide_fwd.cu)."""
+    blocks take 16·32·8 / HP paths, twice that in its head-TF32 instance,
+    csrc/rollout_wide_fwd.cu)."""
     wide_class(h)
     return _WIDE_TILE
 
@@ -384,7 +389,8 @@ def b1_wide_forward(spec: KernelSpec, weights, y0, tables, dw, j,
     """Kernel B1 at every hidden width up to ``ROLLOUT_MAX_WIDTH`` bar
     ``KERNEL_WIDTHS``: each warp carries a few paths through the N steps,
     its lanes sharing the hidden units, the head's sums in the plain
-    version's f32 order.  Arguments and returns as ``b1_forward``."""
+    version's f32 order (the head-TF32 instance twice the paths a warp).
+    Arguments and returns as ``b1_forward``."""
     out = _launch_fwd("rollout_wide_fwd", True, spec, weights, y0, tables,
                       dw, j, save)
     _count(b1_wide_forward, spec)
@@ -400,21 +406,24 @@ def b2_blocks(batch: int) -> int:
     return min(-(-batch // _B2_TILE), _B2_MAX_BLOCKS)
 
 
-def b2_wide_blocks(batch: int, h: int) -> int:
-    """Thread blocks of the wide B2 for ``batch`` paths at hidden width
-    ``h``: one per tile up to the blocks the card holds at once at the
-    width class, each walking its tiles in order."""
-    cap = _WIDE_B2_BLOCKS_PER_SM[wide_class(h)] * _SMS
+def b2_wide_blocks(batch: int, h: int, tf32: bool = False) -> int:
+    """Thread blocks of the wide B2 (its head-TF32 instance with ``tf32``)
+    for ``batch`` paths at hidden width ``h``: one per tile up to the
+    blocks the card holds at once at the width class, each walking its
+    tiles in order."""
+    cap = _WIDE_B2_BLOCKS_PER_SM[wide_class(h), bool(tf32)] * _SMS
     return min(-(-batch // wide_tile(h)), cap)
 
 
-def b2_partial_shape(n: int, batch: int, h: int, p: int):
+def b2_partial_shape(n: int, batch: int, h: int, p: int,
+                     tf32: bool = False):
     """(blocks, floats per block) of the partial buffer of the B2 of hidden
     width ``h`` (the specialised one at ``KERNEL_WIDTHS``, the wide one
-    elsewhere): the Γ head's cotangents, ȳ0 and the N steps' table
-    cotangents of each block, whatever the batch."""
+    elsewhere, its head-TF32 instance with ``tf32``): the Γ head's
+    cotangents, ȳ0 and the N steps' table cotangents of each block,
+    whatever the batch."""
     blocks = b2_blocks(batch) if h in KERNEL_WIDTHS else b2_wide_blocks(
-        batch, h)
+        batch, h, tf32)
     return blocks, h * h + 6 * h + 1 + n * 3 * p * KERNEL_COEFFS
 
 
@@ -427,7 +436,8 @@ def _launch_bwd(name: str, wide: bool, spec, weights, tables, dw, j, xs, ys,
                            ("x_N cotangent", cxn, (batch,)),
                            ("y_N cotangent", cyn, (batch,))):
         _check(what, t, shape, dw.device)
-    n_blocks, n_out = b2_partial_shape(n, batch, spec.hidden, spec.n_pieces)
+    n_blocks, n_out = b2_partial_shape(n, batch, spec.hidden, spec.n_pieces,
+                                       spec.head_tf32)
     fn = _lib(name, 18, 6, 6)
     kw = dict(dtype=torch.float32, device=dw.device)
     partials = torch.empty((n_blocks, n_out), **kw)
@@ -468,7 +478,8 @@ def b2_wide_backward(spec: KernelSpec, weights, tables, dw, j, xs, ys, cxn,
     """Kernel B2 at every hidden width up to ``ROLLOUT_MAX_WIDTH`` bar
     ``KERNEL_WIDTHS``: at most ``b2_wide_blocks(B, H)`` blocks walk their
     128-path tiles in order, each warp replaying 16 paths, the head's three
-    H×H products (h1ᵀ·dp2 block-wide) on the tensor cores in split TF32,
+    H×H products (h1ᵀ·dp2 block-wide) on the tensor cores in split TF32
+    (the head-TF32 instance: one TF32 pass),
     the table cotangents summed per step in a fixed order; a second kernel
     sums the blocks' partials in block order.  Arguments and returns as
     ``b2_backward``."""

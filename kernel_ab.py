@@ -1,7 +1,7 @@
 """A/B of the port's CUDA kernels B1–B4, of the wide sweep pair or of the
 wide rollout pair, on one CUDA card.
 
-    python3 kernel_ab.py [--against DIR] [--wide | --wide-rollout]
+    python3 kernel_ab.py [--against DIR [DIR ...]] [--wide | --wide-rollout]
 
 Builds the four kernels (``csrc/rollout_fwd.cu``, ``rollout_bwd.cu``,
 ``sweep_fwd.cu``, ``sweep_bwd.cu``) of this checkout and, with
@@ -57,7 +57,14 @@ B = 2^17 at each hidden width, with their FP32 bound and tensor-core
 bound; and a training step of the fused speed path at hidden 64 and 128
 in turns.  Its ptxas and SASS report covers the wide sweep pair of each
 build too (their sources share a header with the wide rollout's), and it
-prints each build's shared memory and blocks per SM of B1w and B2w.
+prints each build's shared memory and blocks per SM of B1w and B2w.  The
+head-TF32 instances (``head_precision="default"``) go through the same:
+``check_kernels`` at hidden 20, 64 and 128 (``TF32_WIDTHS``), whether
+their outputs equal the first build's (B2w's on the first build's B1w
+residuals), their times at HP 32, 64 and 128 in turns beside the FP32
+instances' with the tensor-core bound, their shared memory and blocks per
+SM where the build reports them, and the fused speed step with TF32 heads
+at hidden 64 and 128 in turns.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ import argparse
 import contextlib
 import ctypes
 import importlib.util
+import inspect
 import os
 import re
 import subprocess
@@ -80,10 +88,17 @@ WIDE_ROLLOUT_NAMES = ("rollout_wide_fwd", "rollout_wide_bwd")
 # the wide pair's timed shapes at B = 2^17: (hidden, form), the 49 nodes on
 # J ("j") or the 96 nodes on X·J ("x_prop")
 WIDE_TIMES = ((20, "j"), (64, "j"), (100, "j"), (128, "j"), (128, "x_prop"))
+# the wide rollout's head-TF32 instances: checked at these hidden widths,
+# timed at these (HP 32, 64, 128)
+TF32_WIDTHS = (20, 64, 128)
+TF32_TIMED = (32, 64, 128)
+# SASS classes: MUFU is the accurate tanhf's and expf's special-function
+# unit, LOP3 and IADD3 the integer halves of a TF32 rounding or split
 CLASSES = {"FFMA": "fp32", "FADD": "fp32", "FMUL": "fp32", "MUFU": "mufu",
            "HMMA": "hmma", "LDS": "lds", "STS": "sts", "SHFL": "shfl",
            "BAR": "bar", "LDG": "ldg", "STG": "stg", "LDL": "local",
-           "STL": "local"}
+           "STL": "local", "LOP3": "lop3", "IADD3": "iadd3", "F2F": "cvt",
+           "I2F": "cvt", "F2I": "cvt"}
 
 
 def build(csrc: Path, names=NAMES) -> dict:
@@ -299,13 +314,35 @@ def rollout_of(mod, libs: dict):
     wrappers would launch it."""
     from deepfbsdejsolvers_torch.ops import rollout as R
 
-    saved = R.b2_wide_blocks
-    R.b2_wide_blocks = mod.b2_wide_blocks
+    saved, blocks = R.b2_wide_blocks, mod.b2_wide_blocks
+    if mod is not R:
+        takes_tf32 = "tf32" in inspect.signature(blocks).parameters
+        R.b2_wide_blocks = lambda batch, h, tf32=False: (
+            blocks(batch, h, tf32) if takes_tf32 else blocks(batch, h))
     try:
         with using(libs):
             yield
     finally:
-        R.b2_wide_blocks = saved
+        if mod is not R:
+            R.b2_wide_blocks = saved
+
+
+def b2_on(op, inputs, res):
+    """B2 of ``op``'s width on the residuals ``res`` = (x_N, y_N, xs, ys)
+    of a B1 run, with unit cotangents, as ``chip_smoke.kernel_calls``
+    launches it."""
+    import chip_smoke as C
+
+    R = C.kernel_module(op)
+    gam, y0, tabs, dw, j = inputs
+    (w1, w2, w3), (b1, b2, b3) = gam["W"], gam["b"]
+    weights = tuple(t.detach() for t in (w1, b1, w2, b2, w3))
+    ktabs = {"cc": R._fold_b3(tabs["cc"].detach(), b3.detach()),
+             "pc": tabs["pc"].detach(), "zc": tabs["zc"].detach(),
+             "lo": tabs["lo"], "hi": tabs["hi"]}
+    cot = torch.ones_like(res[2][0])
+    return C.rollout_pair(op)[1](op.spec, weights, ktabs, dw, j, res[2],
+                                 res[3], cot, cot)
 
 
 def wide_rollout_ab(C, dirs: dict) -> None:
@@ -326,13 +363,17 @@ def wide_rollout_ab(C, dirs: dict) -> None:
     for label in order:
         with using(built[label]):
             for name in WIDE_ROLLOUT_NAMES:
-                for hp in (32, 64, 128):
-                    smem, blocks = C.occupancy(name, hp)
-                    print(f"{label} {name}<{hp}>: {smem} bytes of shared "
-                          f"memory per block, {blocks} blocks per SM")
+                for entry in (name, f"{name}_tf32"):
+                    if not hasattr(built[label][name], f"{entry}_info"):
+                        continue
+                    for hp in (32, 64, 128):
+                        smem, blocks = C.occupancy(name, hp, entry=entry)
+                        print(f"{label} {entry}<{hp}>: {smem} bytes of "
+                              f"shared memory per block, {blocks} blocks "
+                              f"per SM")
     model, kw = C.speed_config()
-    ops = lambda m, h: {label: mods[label].FusedRolloutOp(
-        m, h, n_pieces=C.PIECES) for label in order}
+    ops = lambda m, h, mode="highest": {label: mods[label].FusedRolloutOp(
+        m, h, n_pieces=C.PIECES, head_precision=mode) for label in order}
 
     # checks at each width, B1w's outputs across builds, and float64 at
     # ROLLOUT_F64_CHECK
@@ -342,7 +383,7 @@ def wide_rollout_ab(C, dirs: dict) -> None:
         for label, op in ops(m, h).items():
             print(f"{label} H={h} N={C.N_STEPS} B={C.CHECK_BATCH}:")
             with rollout_of(mods[label], built[label]):
-                C.check_kernels(op, m, inputs)
+                checked(label, C.check_kernels, op, m, inputs)
                 fwd, bwd = C.kernel_calls(op, inputs)
                 outs[label] = (*fwd(), bwd())
         for label in order:
@@ -357,8 +398,30 @@ def wide_rollout_ab(C, dirs: dict) -> None:
     for label, op in ops(m, h).items():
         print(f"{label} H={h} N={n} B={batch} against float64:")
         with rollout_of(mods[label], built[label]):
-            C.rollout_f64_distances(op, m, inputs)
+            checked(label, C.rollout_f64_distances, op, m, inputs)
     del inputs
+
+    # the head-TF32 instances: checks, and their outputs across builds
+    # (B2w's on the first build's B1w residuals)
+    for h in TF32_WIDTHS:
+        m, inputs = C.rollout_case(model, kw, h, C.N_STEPS, C.CHECK_BATCH)
+        outs, res = {}, None
+        for label, op in ops(m, h, "default").items():
+            print(f"{label} head TF32 H={h} N={C.N_STEPS} "
+                  f"B={C.CHECK_BATCH}:")
+            with rollout_of(mods[label], built[label]):
+                checked(label, C.check_kernels, op, m, inputs)
+                fwd, _ = C.kernel_calls(op, inputs)
+                outs[label] = fwd()
+                res = res or outs[label]
+                outs[label] = (*outs[label], b2_on(op, inputs, res))
+        for label in order:
+            same = [torch.equal(a, b) for a, b in
+                    zip(outs[label], outs[order[0]])]
+            print(f"{label} head TF32 H={h}: B1w outputs (x_N, y_N, xs, ys) "
+                  f"bit-identical to {order[0]}'s: {all(same[:4])}; B2w's "
+                  f"output on the same residuals: {same[4]}")
+        del inputs, outs, res
 
     # kernel times, in turns
     for h in C.WIDE_WIDTHS:
@@ -385,9 +448,36 @@ def wide_rollout_ab(C, dirs: dict) -> None:
                   f"{C.tc_floor(k, C.N_STEPS, C.TRAIN_BATCH, h)[0]:.4f} ms")
         del inputs, calls
 
-    # the wide fused speed steps, in turns
-    for h in C.WIDE_TRAIN_WIDTHS:
-        solver = PricingSolver(model, "global", hidden=(h, h), **kw)
+    # the head-TF32 instances' times beside the FP32 instances', in turns
+    for h in TF32_TIMED:
+        m, inputs = C.rollout_case(model, kw, h, C.N_STEPS, C.TRAIN_BATCH)
+        calls = {}
+        for mode in ("highest", "default"):
+            for label, op in ops(m, h, mode).items():
+                with rollout_of(mods[label], built[label]):
+                    calls[label, mode] = C.kernel_calls(op, inputs)
+        turns = list(calls)
+        times = {key: {"B1w": [], "B2w": []} for key in turns}
+        for key in turns + turns + turns[::-1]:
+            fwd, bwd = calls[key]
+            with rollout_of(mods[key[0]], built[key[0]]):
+                times[key]["B1w"].append(C.kernel_ms(fwd, 20))
+                times[key]["B2w"].append(C.kernel_ms(bwd, 20))
+        for (label, mode), t in times.items():
+            t = {k: v[1:] for k, v in t.items()}
+            print(f"wide rollout {mode} H={h} N={C.N_STEPS} "
+                  f"B={C.TRAIN_BATCH} {label}: " + ", ".join(
+                      f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in t.items()))
+        for k in ("B1", "B2"):
+            print(f"wide rollout H={h} {k}w: tensor-core bound "
+                  f"{C.tc_floor(k, C.N_STEPS, C.TRAIN_BATCH, h)[0]:.4f} ms")
+        del inputs, calls
+
+    # the wide fused speed steps, FP32 and with TF32 heads, in turns
+    for h, mode in [(h, mode) for mode in ("highest", "default")
+                    for h in C.WIDE_TRAIN_WIDTHS]:
+        solver = PricingSolver(model, "global", hidden=(h, h),
+                               fused_head_precision=mode, **kw)
         params = solver.init_params(make_generator("cpu", C.SEED, 0))
         for t in param_leaves(params):
             t.requires_grad_(True)
@@ -400,14 +490,39 @@ def wide_rollout_ab(C, dirs: dict) -> None:
                 times[label].append(C.cuda_ms(lambda: step(gen), reps=5))
         for label in order:
             t = times[label][1:]
-            print(f"speed step at hidden ({h}, {h}), batch {C.TRAIN_BATCH} "
-                  f"{label}: {t[0]:.3f} / {t[1]:.3f} ms")
+            print(f"speed step at hidden ({h}, {h}), head {mode}, batch "
+                  f"{C.TRAIN_BATCH} {label}: {t[0]:.3f} / {t[1]:.3f} ms")
         del solver, params, step
+
+
+def version_label(path: str, i: int) -> str:
+    """The name of the directory that holds another version's
+    ``deepfbsdejsolvers_torch`` (``_archive/pr13/...`` → ``pr13``), else
+    ``against<i>``."""
+    parts = Path(path).resolve().parts
+    if "deepfbsdejsolvers_torch" in parts[1:]:
+        return parts[parts.index("deepfbsdejsolvers_torch") - 1]
+    return f"against{i}"
+
+
+def checked(label: str, fn, *args):
+    """``fn(*args)`` (a ``chip_smoke.py`` check, which exits on a failure);
+    another build's failure is printed and its times are still taken, this
+    checkout's ends the run."""
+    try:
+        return fn(*args)
+    except SystemExit:
+        if label == "this":
+            raise
+        print(f"{label}: FAILED the check above; its times are still taken")
+        return None
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", help="another version's csrc directory")
+    ap.add_argument("--against", nargs="+", default=[],
+                    help="other versions' csrc directories (--wide-rollout "
+                         "takes several)")
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--wide", action="store_true",
                        help="A/B the wide sweep pair B3w/B4w instead of "
@@ -427,8 +542,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dirs = {"this": _build.CSRC}
+    if len(opts.against) > 1 and not opts.wide_rollout:
+        print("kernel_ab: only --wide-rollout takes several --against",
+              file=sys.stderr)
+        return 2
     if opts.against:
-        dirs = {"against": Path(opts.against).resolve(), **dirs}
+        dirs = {**{version_label(d, i): Path(d).resolve()
+                   for i, d in enumerate(opts.against)}, **dirs}
     if opts.wide or opts.wide_rollout:
         (wide_ab if opts.wide else wide_rollout_ab)(C, dirs)
         print_smi()
