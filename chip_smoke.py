@@ -164,13 +164,14 @@ Phases, each fatal on failure:
    ``fuse_heads`` against the split heads on the five MFG schemes (loss
    1e-6, gradient 1e-5 relative), with step times, and device ops on the
    global scheme; the head-TF32 instances of B1, B2, B1w and B2w against
-   their plain versions at hidden 21, 20, 64 and 128 and where B2w's
+   their plain versions at hidden 21, 8, 20, 64 and 128 and where B2w's
    blocks walk two and three tiles (``TF32_CHECKS``, ``check_kernels``,
    the forward step by step on B1's own trajectory), the fused speed path
    trained on them at hidden 21, 64 and 128 (its launches the TF32 rows'
    launches), and their times beside the FP32 instances' in turns (A, B,
-   B, A) at hidden 21 and at HP 32, 64 and 128, with the wide pair's
-   registers and blocks per SM in its rows; and the bench with
+   B, A) at hidden 21 and at HP 32, 64 and 128, each beside its FP32
+   bound, with the registers and blocks per SM of B2 and the wide pair in
+   their rows; and the bench with
    ``--adjoint``, ``--rng rbg`` and ``--fused --fusedPrecision default``,
    each exiting 0 with its launches exact.
 
@@ -353,10 +354,12 @@ ITEM13_LOSS_REL = {"hoist_gamma": 5e-4, "hoist_z=False": 5e-4,
 ADJOINT_LOSS_REL, ADJOINT_GRAD_REL = 1e-6, 3e-5
 FUSE_LOSS_REL, FUSE_GRAD_REL = 1e-6, 1e-5
 # the head-TF32 checks (H, N, batch): full depth at each width class and
-# at 21, and N = 7 where B2w's blocks walk two and three tiles ("walk"); the
+# at 21 and 8, and N = 7 where B2w's blocks walk two and three tiles
+# ("walk"); the
 # fused speed path trained on TF32 heads at these widths; the kernels timed
 # at these (the wide pair at HP 32, 64 and 128)
-TF32_CHECKS = ((21, N_STEPS, CHECK_BATCH), (20, N_STEPS, CHECK_BATCH),
+TF32_CHECKS = ((21, N_STEPS, CHECK_BATCH), (8, N_STEPS, CHECK_BATCH),
+               (20, N_STEPS, CHECK_BATCH),
                (64, N_STEPS, CHECK_BATCH), (128, N_STEPS, CHECK_BATCH),
                (20, 7, "walk"), (128, 7, "walk"))
 TF32_TRAINED = (HIDDEN, 64, 128)
@@ -2395,14 +2398,17 @@ def item13_phases(counters) -> tuple:
                 "ms": turns["default"][k],
                 "plain_ms": plain[k]["plain_ms"],
                 "bound_ms": tc_floor(k, N_STEPS, TRAIN_BATCH, h)[0],
-                "bound_by": tc_floor(k, N_STEPS, TRAIN_BATCH, h)[1]}
+                "bound_by": tc_floor(k, N_STEPS, TRAIN_BATCH, h)[1],
+                "fp32_bound_ms": bound(k, N_STEPS, TRAIN_BATCH, h,
+                                       PIECES)[0]}
             for k in ("B1", "B2")}
         for k, row in tf32["times"][h].items():
             print(f"{k} at H={h}: head TF32 {row['ms'][0]:.4f} / "
                   f"{row['ms'][1]:.4f} ms, FP32 {row['highest_ms'][0]:.4f} /"
                   f" {row['highest_ms'][1]:.4f} ms in turns; plain (TF32) "
                   f"{row['plain_ms']:.3f} ms; bound with the products at "
-                  f"the TF32 rate {row['bound_ms']:.4f} ms")
+                  f"the TF32 rate {row['bound_ms']:.4f} ms, FP32 bound "
+                  f"{row['fp32_bound_ms']:.4f} ms")
         del inputs, calls
 
     lap("head_tf32")
@@ -2473,6 +2479,7 @@ def main() -> int:
     occupancy_by = {}
     for name, entry, widths, pieces in (
             ("rollout_bwd", None, (HIDDEN, 8), (PIECES,)),
+            ("rollout_bwd", "rollout_bwd_tf32", (HIDDEN, 8), (PIECES,)),
             ("rollout_wide_fwd", None, (32, 64, 128), ()),
             ("rollout_wide_fwd", "rollout_wide_fwd_tf32", (32, 64, 128), ()),
             ("rollout_wide_bwd", None, (32, 64, 128), ()),
@@ -2870,7 +2877,6 @@ def main() -> int:
             ("B1w", "rollout_wide_fwd", "pallas_rollout.py:311", "fwd_kernel"),
             ("B2w", "rollout_wide_bwd", "pallas_rollout.py:352",
              "bwd_kernel")):
-        args = "" if k == "B1w" else ",false"
         kind = k[:2]
         by_width = {}
         for h in WIDE_WIDTHS:
@@ -2883,7 +2889,7 @@ def main() -> int:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "fp32_bound_ms": fp32_ms,
                 **wide_roll_check[(h, WIDE_ROLLOUT_CHECKS[0])][kind],
-                "ptxas": ptxas.get(f"{src} {fn}<{hp}{args}>"),
+                "ptxas": ptxas.get(f"{src} {fn}<{hp},false>"),
                 **occupancy_by[f"{src}<{hp}>"]}
             print(f"{k} at H={h} (HP {hp}): {t['ms']:.4f} ms (plain "
                   f"{t['plain_ms']:.3f} ms, tensor-core bound {b_ms:.4f} ms "
@@ -2911,12 +2917,12 @@ def main() -> int:
     # the head-TF32 instances: each kernel's row at the hidden width it
     # trained at (21 for B1/B2, 64 for B1w/B2w, which also trained at 128),
     # its error from the check there (B1w/B2w: at hidden 64), every timed
-    # width under by_width, the wide pair's with its ptxas report and its
-    # blocks per SM
+    # width under by_width with its ptxas report, and B2's and the wide
+    # pair's blocks per SM
     for k, src, h, fn in (
-            ("B1", "rollout_fwd", HIDDEN, None),
-            ("B2", "rollout_bwd", HIDDEN, None),
-            ("B1w", "rollout_wide_fwd", 64, "fwd_tf32_kernel<{}>"),
+            ("B1", "rollout_fwd", HIDDEN, "fwd_kernel<{},true>"),
+            ("B2", "rollout_bwd", HIDDEN, "bwd_kernel<{},true>"),
+            ("B1w", "rollout_wide_fwd", 64, "fwd_kernel<{},true>"),
             ("B2w", "rollout_wide_bwd", 64, "bwd_kernel<{},true>")):
         kind = k[:2]
         t = tf32["times"][h][kind]
@@ -2927,11 +2933,13 @@ def main() -> int:
                    for w in TF32_TRAINED if k in tf32["launches"][w]}
         by_width = {w: dict(tf32["times"][w][kind]) for w in TF32_TIMED
                     if (w in R.KERNEL_WIDTHS) == (k in ("B1", "B2"))}
-        if fn:
-            for w, row in by_width.items():
-                hp = R.wide_class(w)
-                row.update(HP=hp, ptxas=ptxas.get(f"{src} {fn.format(hp)}"),
-                           **occupancy_by[f"{src}_tf32<{hp}>"])
+        for w, row in by_width.items():
+            # the width a kernel is built for: its own or its class
+            built_at = w if k in ("B1", "B2") else R.wide_class(w)
+            if k not in ("B1", "B2"):
+                row["HP"] = built_at
+            row.update(ptxas=ptxas.get(f"{src} {fn.format(built_at)}"),
+                       **occupancy_by.get(f"{src}_tf32<{built_at}>", {}))
         record.append({
             "name": f"{k} {src} [head tf32]", "route": "cuda",
             "source": f"deepfbsdejsolvers_torch/csrc/{src}.cu",

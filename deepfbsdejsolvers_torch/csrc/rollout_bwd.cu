@@ -22,7 +22,8 @@
 //   * per step each thread stages its path's h1, dp2, dp1, x, J, piece
 //     index, Chebyshev basis and three table weights in its warp's rows of
 //     shared memory, and the warp syncs with __syncwarp;
-//   * dW2 and db2: each lane adds a fixed RM×CM micro-tile of Lᵀ·R over the
+//   * dW2 and db2 (the head-TF32 instance's db2 apart, below): each lane
+//     adds a fixed RM×CM micro-tile of Lᵀ·R over the
 //     warp's paths, L = [h1; 1; x; J] and R = [dp2; dp1] (rows past the
 //     needed H + 1 by H are read and dropped), RM + CM float4 reads feeding
 //     4·RM·CM FMAs; db1 and the three dW1 rows: lane h sums dp1[h], x·dp1[h]
@@ -50,9 +51,20 @@
 // The template flag TF is the head-TF32 mode (rollout_common.cuh
 // tf32_round): every operand of the three H×H products is rounded to TF32,
 // h1 and W2 in the recomputed layer, W2 and dp2 in W2·dp2, h1 and dp2 in
-// h1ᵀ·dp2, the sums in f32 in the same order; db2 stays the sum of the
-// unrounded dp2 (the micro-tile that holds the ones row reads the raw
-// dp2).  Without it the kernel is the FP32 one, unchanged.
+// h1ᵀ·dp2, the sums in f32 in the same order.  Each operand is rounded
+// once, where it is loaded or staged (W2 at the weight load, h1 and dp2 as
+// each thread writes its staging rows), so the micro-tile runs the FP32
+// instance's loop on rounded rows, with no rounding and no select in it.
+// db2 stays the sum of the unrounded dp2, as in the plain version: it is
+// summed apart, beside dW3, by a shuffle tree over the warp of the raw dp2
+// of each group of eight outputs (warp_sum8) into a register per group,
+// and the micro-tile's ones row (computed on the rounded dp2) is dropped.
+// Without TF the kernel is the FP32 one, unchanged: db2 is the ones row.
+// On an NVIDIA H100 80GB HBM3 at 700 W (kernel_ab.py, B = 2^17, N = 50,
+// P = 8, H = 21, in turns) the TF instance runs 1.36 ms beside the FP32
+// instance's 1.30; with dp2 rounded and selected per element inside the
+// micro-tile it ran 1.98.  Both take 128 registers and four blocks an SM;
+// the TF instance spills 108 bytes (the FP32 one 92).
 #include "rollout_common.cuh"
 
 namespace rollout {
@@ -106,9 +118,10 @@ struct Bwd {
   static constexpr int GROUPS = (H + 7) / 8;
   // At the end of the walk each thread's sums in [sum][thread] rows, over
   // the staging rows: the micro-tile, db1 and the dW1 rows t, x, J, the
-  // dW3 groups, ȳ0.
+  // dW3 groups, the db2 groups (head-TF32 instance), ȳ0.
   static constexpr int F_DB1 = RM * CM, F_DW3 = F_DB1 + 4,
-                       F_Y0 = F_DW3 + GROUPS, F_ROWS = F_Y0 + 1;
+                       F_DB2 = F_DW3 + GROUPS, F_Y0 = F_DB2 + GROUPS,
+                       F_ROWS = F_Y0 + 1;
   static_assert(F_ROWS * BWD_THREADS <= WARPS * WARP_ROWS * LDJ,
                 "the final sums do not fit the staging rows");
   // Parameter cotangents, in this order: dW2 (H×H, row h1 × column out) |
@@ -178,8 +191,6 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
             ks = lane / (T::NRT * T::NCT);
   const float* tile_l = st + rt * RM * LDJ + ks * W::KLEN;
   const float* tile_r = st + (W::R + ct * CM) * LDJ + ks * W::KLEN;
-  // the micro-tile row that is the ones row (db2), if this lane has it
-  const int ones_r = W::ONES - rt * RM;
   float acc[RM][CM];
 #pragma unroll
   for (int r = 0; r < RM; ++r)
@@ -187,9 +198,10 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
     for (int k = 0; k < CM; ++k) acc[r][k] = 0.0f;
   // lane h < H: Σ dp1[h] | Σ t·dp1[h] | Σ x·dp1[h] | Σ J·dp1[h]
   float a1 = 0.0f, at = 0.0f, ax = 0.0f, aj = 0.0f;
-  float a3[W::GROUPS];  // dW3 output 8g + lane / 4
+  // dW3 output 8g + lane / 4, and with TF db2 output 8g + lane / 4
+  float a3[W::GROUPS], a2[W::GROUPS];
 #pragma unroll
-  for (int g = 0; g < W::GROUPS; ++g) a3[g] = 0.0f;
+  for (int g = 0; g < W::GROUPS; ++g) a3[g] = a2[g] = 0.0f;
   float ay0 = 0.0f;
   int slot = 0;
 
@@ -233,14 +245,15 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
 #pragma unroll
       for (int h = 0; h < H; ++h)
         st[h * LDJ + lane] = TF ? tf32_round(h1[h]) : h1[h];
-      // h2 a quad at a time: dp2 = W3·ḡ·(1 − h2²), and ḡ·h2 summed over
-      // the warp into dW3 eight outputs at a time
+      // h2 a quad at a time: dp2 = W3·ḡ·(1 − h2²) (with TF rounded, as
+      // staged), and ḡ·h2 summed over the warp into dW3 eight outputs at a
+      // time (with TF the raw dp2 into db2 beside it)
       float dp2[H];
 #pragma unroll
       for (int g = 0; g < W::GROUPS; ++g) {
-        float gh2[8];
+        float gh2[8], raw[8];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) gh2[k] = 0.0f;
+        for (int k = 0; k < 8; ++k) gh2[k] = raw[k] = 0.0f;
 #pragma unroll
         for (int q = 2 * g; q < 2 * g + 2 && q < L::QUADS; ++q) {
           float h2[4];
@@ -251,13 +264,17 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
             const int o = 4 * q + k;
             if (o < H) {
               dp2[o] = (lane_of(w3q, k) * gbar) * (1.0f - h2[k] * h2[k]);
+              if constexpr (TF) {
+                raw[o - 8 * g] = dp2[o];
+                dp2[o] = tf32_round(dp2[o]);
+              }
               st[(W::R + o) * LDJ + lane] = dp2[o];
-              if constexpr (TF) dp2[o] = tf32_round(dp2[o]);
               gh2[o - 8 * g] = gbar * h2[k];
             }
           }
         }
         a3[g] += warp_sum8(gh2, lane);
+        if constexpr (TF) a2[g] += warp_sum8(raw, lane);
       }
       // dp1 = (W2·dp2)·(1 − h1²).  Its x entry, Σ_h W1[x, h]·dp1[h], is
       // ḡ·dΓ/dx, so no forward-mode pass is needed.
@@ -311,34 +328,15 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
           for (int r = 0; r < RM; ++r) lq[r] = quad(tile_l + r * LDJ, j);
 #pragma unroll
           for (int k = 0; k < CM; ++k) rq[k] = quad(tile_r + k * LDJ, j);
-          if constexpr (TF) {
-            // dp2 rounded for h1ᵀ·dp2, raw for the ones row's db2
-            float4 rr[CM];
 #pragma unroll
-            for (int k = 0; k < CM; ++k)
-              rr[k] = make_float4(tf32_round(rq[k].x), tf32_round(rq[k].y),
-                                  tf32_round(rq[k].z), tf32_round(rq[k].w));
+          for (int r = 0; r < RM; ++r)
 #pragma unroll
-            for (int r = 0; r < RM; ++r)
-#pragma unroll
-              for (int k = 0; k < CM; ++k) {
-                const float4 v = r == ones_r ? rq[k] : rr[k];
-                acc[r][k] += lq[r].x * v.x;
-                acc[r][k] += lq[r].y * v.y;
-                acc[r][k] += lq[r].z * v.z;
-                acc[r][k] += lq[r].w * v.w;
-              }
-          } else {
-#pragma unroll
-            for (int r = 0; r < RM; ++r)
-#pragma unroll
-              for (int k = 0; k < CM; ++k) {
-                acc[r][k] += lq[r].x * rq[k].x;
-                acc[r][k] += lq[r].y * rq[k].y;
-                acc[r][k] += lq[r].z * rq[k].z;
-                acc[r][k] += lq[r].w * rq[k].w;
-              }
-          }
+            for (int k = 0; k < CM; ++k) {
+              acc[r][k] += lq[r].x * rq[k].x;
+              acc[r][k] += lq[r].y * rq[k].y;
+              acc[r][k] += lq[r].z * rq[k].z;
+              acc[r][k] += lq[r].w * rq[k].w;
+            }
         }
       }
       // db1 and the dW1 rows of input lane
@@ -422,13 +420,21 @@ bwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   fin[(W::F_DB1 + 2) * BWD_THREADS + tid] = ax;
   fin[(W::F_DB1 + 3) * BWD_THREADS + tid] = aj;
 #pragma unroll
-  for (int g = 0; g < W::GROUPS; ++g)
+  for (int g = 0; g < W::GROUPS; ++g) {
     fin[(W::F_DW3 + g) * BWD_THREADS + tid] = a3[g];
+    if constexpr (TF) fin[(W::F_DB2 + g) * BWD_THREADS + tid] = a2[g];
+  }
   fin[W::F_Y0 * BWD_THREADS + tid] = ay0;
   __syncthreads();
   for (int q = tid; q <= W::N_PARAM; q += BWD_THREADS) {
     float s = 0.0f;
-    if (q < H * H + H) {  // dW2, then db2 (row H of the product: ones)
+    if (TF && q >= H * H && q < H * H + H) {
+      // db2 of the head-TF32 instance: its groups' lanes 4·(o % 8)
+      const int o = q - H * H;
+      const float* f = fin + (W::F_DB2 + o / 8) * BWD_THREADS + 4 * (o % 8);
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += f[w * WARP];
+    } else if (q < H * H + H) {  // dW2, then db2 (row H of the product: ones)
       const int r = q < H * H ? q / H : H, k = q < H * H ? q % H : q - H * H;
       const int lane_q = r / RM + T::NRT * (k / CM);
       const float* f = fin + ((r % RM) * CM + k % CM) * BWD_THREADS;
@@ -477,14 +483,27 @@ cudaError_t allow_smem(size_t smem) {
       (int)smem);
 }
 
-template <int H>
+template <int H, bool TF>
 cudaError_t info_bwd(int p, int* smem, int* blocks_per_sm) {
   const size_t bytes = smem_bytes<H>(p);
   *smem = (int)bytes;
-  const cudaError_t err = allow_smem<H, false>(bytes);
+  const cudaError_t err = allow_smem<H, TF>(bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, bwd_kernel<H, false>, BWD_THREADS, bytes);
+      blocks_per_sm, bwd_kernel<H, TF>, BWD_THREADS, bytes);
+}
+
+template <bool TF>
+int info_bwd_at(int hidden, int n_pieces, int* smem, int* blocks_per_sm) {
+  if (n_pieces < 1) return (int)cudaErrorInvalidValue;
+  switch (hidden) {
+    case 8:
+      return (int)info_bwd<8, TF>(n_pieces, smem, blocks_per_sm);
+    case 21:
+      return (int)info_bwd<21, TF>(n_pieces, smem, blocks_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int H, bool TF>
@@ -550,17 +569,14 @@ extern "C" int rollout_bwd(const float* dw, const float* jr, const float* cc,
 }
 
 // The kernel's dynamic shared memory per block and its resident blocks per
-// SM at ``hidden`` and ``n_pieces`` (chip_smoke.py reports them).
+// SM at ``hidden`` and ``n_pieces`` (chip_smoke.py reports them), of the
+// FP32 instance and of the head-TF32 one.
 extern "C" int rollout_bwd_info(int hidden, int n_pieces, int* smem,
                                 int* blocks_per_sm) {
-  using namespace rollout;
-  if (n_pieces < 1) return (int)cudaErrorInvalidValue;
-  switch (hidden) {
-    case 8:
-      return (int)info_bwd<8>(n_pieces, smem, blocks_per_sm);
-    case 21:
-      return (int)info_bwd<21>(n_pieces, smem, blocks_per_sm);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return rollout::info_bwd_at<false>(hidden, n_pieces, smem, blocks_per_sm);
+}
+
+extern "C" int rollout_bwd_tf32_info(int hidden, int n_pieces, int* smem,
+                                     int* blocks_per_sm) {
+  return rollout::info_bwd_at<true>(hidden, n_pieces, smem, blocks_per_sm);
 }

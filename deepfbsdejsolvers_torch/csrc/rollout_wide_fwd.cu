@@ -27,35 +27,48 @@
 // in split TF32 (W2 in three terms) and 2.31e-4 on the FP64 tensor cores
 // (exact products, f64 sums), against 8.1e-6 for this order.
 //
-// Design: a block of eight warps takes TILE = 8·P paths, each warp P of
-// them, and walks the N steps.  Per step the lanes of each path look up its
-// piece, evaluate the compensator table and broadcast x and J over the
-// warp; each lane forms the first layer of its units for the warp's paths
-// (staged in shared memory), then the second layer of its units, reading
-// each staged h1 quad as one broadcast and each W2 value once for P paths,
-// and stages h2; the lanes of each path sum Γ = Σ_o W3[o]·h2[o] over the
-// outputs in order, as B1 and the plain version's matmul do (a shuffle
-// tree rounds it otherwise, the same way for every path of equal inputs,
-// and the loss's gradient, a sum over paths, magnifies that), then update
-// y and walk x exactly as B1 does.  No barrier after the weight load but
-// __syncwarp, so the kernel
-// takes any N and B: the ragged last block's idle paths compute on zero
-// noise and write nothing.
+// Design: one kernel template, fwd_kernel<HP, TF>, for both instances.  A
+// block of eight warps takes TILE = 8·P paths, each warp P = 32 / U of
+// them, where U = HP / 32 is the hidden units a lane owns (lane l: units
+// l + 32u), so that SPAN = 32 / P lanes share a path; it walks the N steps.
+// Per step the lanes of each path look up its piece, evaluate the
+// compensator table and broadcast x and J over the warp; each lane forms
+// the first layer of its units for the warp's paths and stages it in
+// shared memory; then Z = h1·W2 at its units: the quad loop takes the four
+// W2 rows of a quad of h once (4U values in registers) and the paths one
+// at a time, one float4 broadcast of h1 each, so that each W2 value read
+// from shared memory serves P paths and the registers hold the P·U
+// accumulators, not P float4s of h1.  Each accumulator sums over h in order
+// from zero, one f32 fma a term, the bias b2 (in registers) added last.
+// The lane stages h2, and the lanes of each path sum Γ = Σ_o W3[o]·h2[o]
+// over the outputs in order, as B1 and the plain version's matmul do (a
+// shuffle tree rounds it otherwise, the same way for every path of equal
+// inputs, and the loss's gradient, a sum over paths, magnifies that), then
+// update y and walk x exactly as B1 does.  No barrier after the weight load
+// but __syncwarp, so the kernel takes any N and B: the ragged last block's
+// idle paths compute on zero noise and write nothing.
 //
-// The head-TF32 instance (fwd_tf32_kernel, head_tf32 != 0) keeps this
-// order too: W2 loaded and h1 staged rounded to TF32 (the first layer
-// summed as first_sum_tf32 sums it, so h1 is the plain version's bits),
-// the products of two TF32 values exact in f32, the sums the plain
-// version's.  It gains by register tiling: twice the FP32 instance's paths
-// a warp (LanesTf32), so each W2 value read from shared memory serves
-// twice the paths, with its loop reordered so that the extra paths cost
-// accumulators, not staged h1 quads, in registers (NVIDIA H100 80GB HBM3,
-// 700 W, kernel_ab.py --wide-rollout, B = 2^17, N = 50: 1.02 → 0.97 ms at
-// HP 32, 2.33 → 2.19 at 64, 8.34 → 6.62 at 128).
+// TF (head_tf32 != 0) changes two things: W2 is loaded rounded to TF32,
+// and h1 is summed as first_sum_tf32 sums it (so that h1 is the plain
+// version's bits) and staged rounded; the products of two TF32 values are
+// exact in f32 and the sums are the plain version's.  Without TF the first
+// layer's sum is written out in the FMAs of the FP32 instance's earlier
+// layout of 16 / U paths a warp (first_sum), and only which lane holds
+// which path differs from that layout, so the FP32 instance's outputs are
+// the earlier kernel's bit for bit.  The register tiling took it on an
+// NVIDIA H100 80GB HBM3 at 700 W (kernel_ab.py --wide-rollout, B = 2^17,
+// N = 50, in turns) from 0.99 to 0.92 ms at HP 32, 2.27 to 2.15 at 64 and
+// 8.26 to 6.59 at 128.  Larger tiles did not pay: 32 paths a warp at HP 64
+// (128 registers, 2 blocks an SM) ran 2.15 ms, its TF instance 2.21
+// against 2.18; 16 at HP 128 (1 block an SM) 9.99 against 6.59.  The path
+// index stays an int: in 64 bits the TF instance ran 2.39 ms at HP 64
+// against 2.22.
 //
-// Its product on the tensor cores (B2w's layout, h1 rounded in registers
-// as the A operand, one TF32 mma.sync pass, h2 staged 32 units at a time
-// for the in-order Γ sum) ran 0.54, 1.04 and 2.28 ms there and missed the
+// The TF instance's product on the tensor cores (B2w's layout, h1 rounded
+// in registers as the A operand, one TF32 mma.sync pass, h2 staged 32 units
+// at a time for the in-order Γ sum) ran 0.54, 1.04 and 2.28 ms at HP 32,
+// 64 and 128 (NVIDIA H100 80GB HBM3, 700 W, kernel_ab.py --wide-rollout,
+// B = 2^17, N = 50) and missed the
 // B1 + B2 gradient check at hidden 20: global 1.02e-4, per leaf up to
 // 2.9e-4 (y0), against 2.6e-6 for this order (tolerance 1e-4).  Its
 // trajectories held step by step (Σ of the local errors 9.3e-6) and the
@@ -69,36 +82,34 @@
 
 namespace rollout_wide {
 
-// B1w's layout of the head's second layer: the hidden units spread over a
-// warp's lanes, lane l owning the U = HP / 32 units k = l + 32u, P = 16 / U
-// paths a warp; W2 in shared memory with a row stride of HP + 1 floats, so
-// that lane l reading row h at column l + 32u and row l + 32u at column k
-// are both free of bank conflicts; then b2; then the block's staged rows.
+// B1w's layout: lane l owns the U = HP / 32 hidden units k = l + 32u of P =
+// 32 / U paths a warp, SPAN = 32 / P lanes a path, TILE = 8·P paths a
+// block; in shared memory W2 with a row stride of HP + 1 floats, so that
+// lane l reading row h at column l + 32u is free of bank conflicts, then
+// W3, then per warp its P staging rows of HP (h1, then h2).
 template <int HP>
 struct Lanes {
   static_assert(HP == 32 || HP == 64 || HP == 128, "width class");
-  static constexpr int U = HP / WARP;    // units per lane
-  static constexpr int P = 16 / U;       // paths per warp
-  static constexpr int TILE = WARPS * P; // paths per block
-  static constexpr int SPAN = WARP / P;  // lanes per path
+  static constexpr int U = HP / WARP;
+  static constexpr int P = WARP / U;
+  static constexpr int TILE = WARPS * P;
+  static constexpr int SPAN = WARP / P;
   static constexpr int LDW = HP + 1;
-  static constexpr int W2 = 0;
-  static constexpr int B2 = (HP * LDW + 3) / 4 * 4;
-  static constexpr int H1S = B2 + HP;
-  static_assert(H1S % 4 == 0, "staged rows are read as float4s");
+  static constexpr int W3 = (HP * LDW + 3) / 4 * 4;
+  static constexpr int STAGE = W3 + HP;
+  static constexpr int SIZE = STAGE + WARPS * P * HP;
+  static_assert(STAGE % 4 == 0, "staged rows are read as float4s");
 };
 
-
-// The first layer's rows t, x, J, b1, b2 and W3 at the lane's units k =
-// lane + 32u, zero past h.
+// The first layer's rows t, x, J, b1 and b2 at the lane's units k = lane +
+// 32u, zero past h.
 template <int U>
 struct Units {
-  float wt[U], wx[U], wj[U], b1[U], b2[U], w3[U];
+  float wt[U], wx[U], wj[U], b1[U], b2[U];
 
   __device__ __forceinline__ void load(const float* __restrict__ w1,
                                        const float* __restrict__ b1_,
-                                       const float* __restrict__ b2_,
-                                       const float* __restrict__ w3_, int h,
+                                       const float* __restrict__ b2_, int h,
                                        int lane) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -109,10 +120,30 @@ struct Units {
       wj[u] = in ? __ldg(w1 + 2 * h + k) : 0.0f;
       b1[u] = in ? __ldg(b1_ + k) : 0.0f;
       b2[u] = in ? __ldg(b2_ + k) : 0.0f;
-      w3[u] = in ? __ldg(w3_ + k) : 0.0f;
     }
   }
 };
+
+// A first-layer unit's pre-activation t·wt + x·wx + J·wj + b.  With TF
+// as rollout::first_sum_tf32 forms it.  Without TF in the FMAs that this
+// kernel has always rounded it with, written out because the compiler's
+// own contraction of t·wt + x·wx depends on how many uses the product
+// t·wt (shared by the warp's paths) has: nvcc fuses a product into an FMA
+// only where it has fewer than five, so the earlier layout's four paths a
+// warp at HP 128 took t·wt into the FMA, its eight or more at HP 32 and 64
+// took x·wx.
+template <int HP, bool TF>
+__device__ __forceinline__ float first_sum(float wt, float wx, float wj,
+                                           float b, float ti, float x,
+                                           float j) {
+  if constexpr (TF) {
+    return rollout::first_sum_tf32(wt, wx, wj, b, ti, x, j);
+  } else {
+    const float tx = HP == 128 ? __fmaf_rn(wt, ti, __fmul_rn(wx, x))
+                               : __fmaf_rn(wx, x, __fmul_rn(wt, ti));
+    return __fadd_rn(__fmaf_rn(wj, j, tx), b);
+  }
+}
 
 // v[p] of lane ``lane`` for each of the warp's P paths: the value that the
 // path's first lane holds.
@@ -123,88 +154,7 @@ __device__ __forceinline__ void gather_paths(float v, float (&out)[P]) {
   for (int p = 0; p < P; ++p) out[p] = __shfl_sync(FULL, v, p * SPAN);
 }
 
-// h1[p][u] = tanh(t·W1[t, k] + x_p·W1[x, k] + J_p·W1[J, k] + b1[k]) at the
-// lane's units, in the sum order of rollout::first_layer, written to the
-// warp's staging rows ``stage`` (P rows of HP); returns them too.
-template <int HP>
-__device__ __forceinline__ void first_layer(
-    const Units<Lanes<HP>::U>& w, float ti, const float (&x)[Lanes<HP>::P],
-    const float (&j)[Lanes<HP>::P], int lane,
-    float (&h1)[Lanes<HP>::P][Lanes<HP>::U], float* stage) {
-  using L = Lanes<HP>;
-#pragma unroll
-  for (int u = 0; u < L::U; ++u)
-#pragma unroll
-    for (int p = 0; p < L::P; ++p) {
-      h1[p][u] = tanhf(w.wt[u] * ti + w.wx[u] * x[p] + w.wj[u] * j[p] +
-                       w.b1[u]);
-      stage[p * HP + lane + WARP * u] = h1[p][u];
-    }
-}
-
-// z[p][u] = Σ_h h1[p][h]·W2[h][k] + b2[k] at the lane's units, the sum over
-// h in order from zero and the bias added last, as the plain version's
-// matmul and add round it; h1 is read from the warp's staging rows as
-// float4 broadcasts and W2 from shared memory (rows of LDW: lane l reads
-// bank h + l, no conflicts).
-template <int HP>
-__device__ __forceinline__ void second_layer(
-    const float* sm, const Units<Lanes<HP>::U>& w, int lane,
-    const float* stage, float (&z)[Lanes<HP>::P][Lanes<HP>::U]) {
-  using L = Lanes<HP>;
-#pragma unroll
-  for (int u = 0; u < L::U; ++u)
-#pragma unroll
-    for (int p = 0; p < L::P; ++p) z[p][u] = 0.0f;
-#pragma unroll 2
-  for (int q = 0; q < HP / 4; ++q) {
-    float4 hv[L::P];
-#pragma unroll
-    for (int p = 0; p < L::P; ++p) hv[p] = quad(stage + p * HP, q);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* wrow = sm + (4 * q + j) * L::LDW + lane;
-#pragma unroll
-      for (int u = 0; u < L::U; ++u) {
-        const float wv = wrow[WARP * u];
-#pragma unroll
-        for (int p = 0; p < L::P; ++p) z[p][u] += lane_of(hv[p], j) * wv;
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < L::U; ++u)
-#pragma unroll
-    for (int p = 0; p < L::P; ++p) z[p][u] += w.b2[u];
-}
-
-// W2 and b2 of width h into shared memory in ``Lanes``' layout, zero past
-// h.
-template <int HP>
-__device__ __forceinline__ void load_weights(float* sm,
-                                             const float* __restrict__ w2,
-                                             const float* __restrict__ b2,
-                                             int h) {
-  using L = Lanes<HP>;
-  for (int q = threadIdx.x; q < HP * HP; q += blockDim.x) {
-    const int row = q / HP, col = q % HP;
-    const float v = (row < h && col < h) ? __ldg(w2 + row * h + col) : 0.0f;
-    sm[L::W2 + row * L::LDW + col] = v;
-  }
-  for (int q = threadIdx.x; q < HP; q += blockDim.x)
-    sm[L::B2 + q] = q < h ? __ldg(b2 + q) : 0.0f;
-}
-
-
-template <int HP>
-struct Fwd {
-  // W2 | b2 | W3 (HP) | per warp its P staging rows of HP (h1, then h2)
-  static constexpr int W3 = Lanes<HP>::H1S;
-  static constexpr int STAGE = W3 + HP;
-  static constexpr int SIZE = STAGE + WARPS * Lanes<HP>::P * HP;
-};
-
-template <int HP>
+template <int HP, bool TF>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
            const float* __restrict__ cc, const float* __restrict__ pc,
@@ -222,124 +172,19 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   float* sm = reinterpret_cast<float*>(sm4);
   const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
   const bool writer = lane % L::SPAN == 0;
-  const int b = blockIdx.x * L::TILE + warp * P + lane / L::SPAN;
-  const bool active = b < batch;
-  using F = Fwd<HP>;
-  float* stage = sm + F::STAGE + warp * P * HP;
-  load_weights<HP>(sm, w2, b2, h);
-  for (int q = threadIdx.x; q < HP; q += THREADS)
-    sm[F::W3 + q] = q < h ? __ldg(w3 + q) : 0.0f;
-  Units<U> wu;
-  wu.load(w1, b1, b2, w3, h, lane);
-  __syncthreads();
-
-  const bool save = xs != nullptr;
-  float x = x0;
-  float y = __ldg(y0);
-  for (int i = 0; i < n; ++i) {
-    const size_t off = (size_t)i * batch + b;
-    float dwr = 0.0f, jv = 0.0f;
-    if (active) {
-      dwr = __ldg(dw + off);
-      jv = __ldg(jr + off);
-      if (save && writer) xs[off] = x;
-    }
-    const Piece pk = rollout::locate(x, __ldg(lo + i), __ldg(hi + i), np);
-    const size_t row = ((size_t)i * np + pk.k) * D;
-    const float comp = rollout::clenshaw(cc + row, pk.t);
-
-    float xp[P], jp[P], h1[P][U], z[P][U];
-    gather_paths<P>(x, xp);
-    gather_paths<P>(jv, jp);
-    first_layer<HP>(wu, c.time_scale * (float)i, xp, jp, lane, h1, stage);
-    __syncwarp();
-    second_layer<HP>(sm, wu, lane, stage, z);
-    __syncwarp();  // every lane has read h1: the rows take h2
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-        stage[p * HP + lane + WARP * u] = tanhf(z[p][u]);
-    __syncwarp();
-    // Γ of this lane's path, over the outputs in order (the padding adds
-    // exact zeros)
-    float gam = 0.0f;
-    const float* h2 = stage + (lane / L::SPAN) * HP;
-#pragma unroll 4
-    for (int q = 0; q < HP / 4; ++q) {
-      const float4 hq = quad(h2, q), wq = quad(sm + F::W3, q);
-      gam += hq.x * wq.x;
-      gam += hq.y * wq.y;
-      gam += hq.z * wq.z;
-      gam += hq.w * wq.w;
-    }
-    __syncwarp();  // the staging rows are free for the next step
-
-    y = y + y * c.r_dt + gam - comp;
-    y = y + rollout::clenshaw(zc + row, pk.t) * dwr;
-    const float a = rollout::clenshaw(pc + row, pk.t);
-    if (save && writer && active) ys[off] = y;
-    const float e = 1.0f + rollout::expm1_acc(c.drift + c.sigma * dwr + jv);
-    x = x * e + (c.a_lin * fabsf(y - a)) * c.dt;
-  }
-  if (writer && active) {
-    xn[b] = x;
-    yn[b] = y;
-  }
-}
-
-// The head-TF32 instance: the FP32 instance's lanes (``Lanes``: lane l owns
-// the U = HP / 32 units l + 32u), but twice its paths a warp, P = 32 / U
-// (TILE = 8·P a block, SPAN = 32 / P lanes a path), so that each W2 value
-// read from shared memory serves twice the paths; W2 loaded and h1 staged
-// rounded to TF32.  Z's loop takes the four W2 rows of a quad of h once
-// (4U values in registers) and the paths one at a time, one float4 of h1
-// each, so its registers hold the P·U accumulators, not P float4s of h1.
-// Each accumulator still sums over h in order from zero, the bias last:
-// the plain version's rounding.
-template <int HP>
-struct LanesTf32 {
-  static constexpr int U = HP / WARP;
-  static constexpr int P = 32 / U;
-  static constexpr int TILE = WARPS * P;
-  static constexpr int SPAN = WARP / P;
-  // W2 (rows of LDW) | W3 | per warp its P staging rows of HP
-  static constexpr int LDW = Lanes<HP>::LDW;
-  static constexpr int W3 = Lanes<HP>::B2;
-  static constexpr int STAGE = W3 + HP;
-  static constexpr int SIZE = STAGE + WARPS * P * HP;
-};
-
-template <int HP>
-__global__ void __launch_bounds__(THREADS)
-fwd_tf32_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
-                const float* __restrict__ cc, const float* __restrict__ pc,
-                const float* __restrict__ zc, const float* __restrict__ lo,
-                const float* __restrict__ hi, const float* __restrict__ w1,
-                const float* __restrict__ b1, const float* __restrict__ w2,
-                const float* __restrict__ b2, const float* __restrict__ w3,
-                const float* __restrict__ y0, float* __restrict__ xn,
-                float* __restrict__ yn, float* __restrict__ xs,
-                float* __restrict__ ys, int n, int batch, int np, int h,
-                Consts c, float x0) {
-  using L = LanesTf32<HP>;
-  constexpr int P = L::P, U = L::U;
-  extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
-  const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
-  const bool writer = lane % L::SPAN == 0;
+  // ops/rollout.py keeps B under 2^31 − 256, so b fits an int
   const int b = blockIdx.x * L::TILE + warp * P + lane / L::SPAN;
   const bool active = b < batch;
   float* stage = sm + L::STAGE + warp * P * HP;
   for (int q = threadIdx.x; q < HP * HP; q += THREADS) {
     const int row = q / HP, col = q % HP;
     const float v = (row < h && col < h) ? __ldg(w2 + row * h + col) : 0.0f;
-    sm[row * L::LDW + col] = rollout::tf32_round(v);
+    sm[row * L::LDW + col] = TF ? rollout::tf32_round(v) : v;
   }
   for (int q = threadIdx.x; q < HP; q += THREADS)
     sm[L::W3 + q] = q < h ? __ldg(w3 + q) : 0.0f;
   Units<U> wu;
-  wu.load(w1, b1, b2, w3, h, lane);
+  wu.load(w1, b1, b2, h, lane);
   __syncthreads();
 
   const bool save = xs != nullptr;
@@ -358,17 +203,18 @@ fwd_tf32_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
     const float comp = rollout::clenshaw(cc + row, pk.t);
     const float ti = c.time_scale * (float)i;
 
-    // h1 of the warp's paths at this lane's units, staged rounded
+    // h1 of the warp's paths at this lane's units, staged (rounded with TF)
     float xp[P], jp[P];
     gather_paths<P>(x, xp);
     gather_paths<P>(jv, jp);
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int p = 0; p < P; ++p)
-        stage[p * HP + lane + WARP * u] =
-            rollout::tf32_round(tanhf(rollout::first_sum_tf32(
-                wu.wt[u], wu.wx[u], wu.wj[u], wu.b1[u], ti, xp[p], jp[p])));
+      for (int p = 0; p < P; ++p) {
+        const float v = tanhf(first_sum<HP, TF>(wu.wt[u], wu.wx[u], wu.wj[u],
+                                                wu.b1[u], ti, xp[p], jp[p]));
+        stage[p * HP + lane + WARP * u] = TF ? rollout::tf32_round(v) : v;
+      }
     __syncwarp();
     // Z = h1·W2 + b2 at the lane's units, in order over h
     float z[P][U];
@@ -403,7 +249,8 @@ fwd_tf32_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
       for (int p = 0; p < P; ++p)
         stage[p * HP + lane + WARP * u] = tanhf(z[p][u] + wu.b2[u]);
     __syncwarp();
-    // Γ of this lane's path, over the outputs in order
+    // Γ of this lane's path, over the outputs in order (the padding adds
+    // exact zeros)
     float gam = 0.0f;
     const float* h2 = stage + (lane / L::SPAN) * HP;
 #pragma unroll 4
@@ -429,17 +276,12 @@ fwd_tf32_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
   }
 }
 
-// The shared memory above 48 KB needs the kernels' opt-in before a launch.
+// The shared memory above 48 KB needs the kernel's opt-in before a launch.
 template <int HP, bool TF>
 cudaError_t allow_smem() {
-  if constexpr (TF)
-    return cudaFuncSetAttribute(fwd_tf32_kernel<HP>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)(sizeof(float) * LanesTf32<HP>::SIZE));
-  else
-    return cudaFuncSetAttribute(fwd_kernel<HP>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)(sizeof(float) * Fwd<HP>::SIZE));
+  return cudaFuncSetAttribute(fwd_kernel<HP, TF>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(sizeof(float) * Lanes<HP>::SIZE));
 }
 
 template <int HP, bool TF>
@@ -452,34 +294,21 @@ cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
                        float x0, cudaStream_t stream) {
   const cudaError_t err = allow_smem<HP, TF>();
   if (err != cudaSuccess) return err;
-  if constexpr (TF) {
-    using L = LanesTf32<HP>;
-    const int blocks = (batch + L::TILE - 1) / L::TILE;
-    fwd_tf32_kernel<HP><<<blocks, THREADS, sizeof(float) * L::SIZE,
-                          stream>>>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2,
-                                    b2, w3, y0, xn, yn, xs, ys, n, batch, np,
-                                    h, c, x0);
-  } else {
-    const int blocks = (batch + Lanes<HP>::TILE - 1) / Lanes<HP>::TILE;
-    fwd_kernel<HP><<<blocks, THREADS, sizeof(float) * Fwd<HP>::SIZE,
-                     stream>>>(dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2,
-                               w3, y0, xn, yn, xs, ys, n, batch, np, h, c,
-                               x0);
-  }
+  using L = Lanes<HP>;
+  const int blocks = (int)(((long long)batch + L::TILE - 1) / L::TILE);
+  fwd_kernel<HP, TF><<<blocks, THREADS, sizeof(float) * L::SIZE, stream>>>(
+      dw, jr, cc, pc, zc, lo, hi, w1, b1, w2, b2, w3, y0, xn, yn, xs, ys, n,
+      batch, np, h, c, x0);
   return cudaGetLastError();
 }
 
 template <int HP, bool TF>
 cudaError_t info_fwd(int* smem, int* blocks_per_sm) {
-  *smem = (int)(sizeof(float) * (TF ? LanesTf32<HP>::SIZE : Fwd<HP>::SIZE));
+  *smem = (int)(sizeof(float) * Lanes<HP>::SIZE);
   const cudaError_t err = allow_smem<HP, TF>();
   if (err != cudaSuccess) return err;
-  if constexpr (TF)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fwd_tf32_kernel<HP>, THREADS, *smem);
-  else
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fwd_kernel<HP>, THREADS, *smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fwd_kernel<HP, TF>, THREADS, *smem);
 }
 
 template <bool TF>

@@ -76,6 +76,9 @@ _B2_MAX_BLOCKS = 4 * 132
 ROLLOUT_MAX_WIDTH = 128
 _WIDE_CLASSES = (32, 64, 128)
 _WIDE_TILE = 128
+# The most paths a block of the wide B1 takes (256 at HP 32), which bounds
+# the paths its blocks index (csrc/rollout_wide_fwd.cu ``Lanes``).
+_WIDE_B1_MAX_TILE = 256
 _WIDE_B2_BLOCKS_PER_SM = {(32, False): 2, (64, False): 2, (128, False): 1,
                           (32, True): 3, (64, True): 2, (128, True): 1}
 _SMS = 132
@@ -123,7 +126,7 @@ def wide_class(h: int) -> int:
 def wide_tile(h: int) -> int:
     """Paths per block of the wide B2 at hidden width ``h``: eight warps of
     one m16 tile of 16 paths each, at every width class (the wide B1's
-    blocks take 16·32·8 / HP paths, twice that in its head-TF32 instance,
+    blocks take 32·32·8 / HP paths, 256, 128 or 64, in both instances,
     csrc/rollout_wide_fwd.cu)."""
     wide_class(h)
     return _WIDE_TILE
@@ -280,9 +283,10 @@ def _check(name, t, shape, device):
 
 def _check_sizes(n: int, batch: int, h: int, p: int) -> None:
     """The kernels index in 32-bit ints the path-steps (N·B), the paths up
-    to the end of their last tile (at most 128 wide), and B2's partial rows
-    of H² + 6H + 1 + N·3·P·D floats."""
-    if (n * batch >= 2**31 or batch > 2**31 - _B2_TILE
+    to the end of their last tile (at most 128 wide, 256 in the wide B1),
+    and B2's partial rows of H² + 6H + 1 + N·3·P·D floats."""
+    tile = _B2_TILE if h in KERNEL_WIDTHS else _WIDE_B1_MAX_TILE
+    if (n * batch >= 2**31 or batch > 2**31 - tile
             or b2_partial_shape(n, batch, h, p)[1] >= 2**31):
         raise ValueError("the rollout does not fit the kernels' 32-bit "
                          "indices")
@@ -389,7 +393,7 @@ def b1_wide_forward(spec: KernelSpec, weights, y0, tables, dw, j,
     """Kernel B1 at every hidden width up to ``ROLLOUT_MAX_WIDTH`` bar
     ``KERNEL_WIDTHS``: each warp carries a few paths through the N steps,
     its lanes sharing the hidden units, the head's sums in the plain
-    version's f32 order (the head-TF32 instance twice the paths a warp).
+    version's f32 order, one register-tiled kernel for both instances.
     Arguments and returns as ``b1_forward``."""
     out = _launch_fwd("rollout_wide_fwd", True, spec, weights, y0, tables,
                       dw, j, save)

@@ -22,14 +22,22 @@ at N = 50, P = 8; B3/B4 on the 49-node quadrature and 5000 Monte-Carlo
 nodes) in turns: one untimed turn in order while the card's clocks rise
 from idle, then in order and in reverse (A, B, B, A).
 
+B1's and B2's head-TF32 instances (``head_precision="default"``) go
+through the same at H = 21 and 8 (``TF32_NARROW``): ``check_kernels``,
+whose forward check runs step by step on B1's own trajectory
+(``tf32_step_errors``), whether B1 TF's outputs equal the first build's
+and B2 TF's on the first build's B1 TF residuals, and their times at
+H = 21 in the same turns as the FP32 instances'.
+
 Prints each build's ptxas report; its SASS (``cuobjdump -sass``) counts per
 kernel, whole and per loop: every backward branch closes a loop, printed
 with its nesting depth and the counts of its body without its inner
-loops, so that each body can be multiplied by its trip count; whether
-B1's and B2's outputs and B3's output equal the first build's bit for
-bit; the two
-times of each kernel; and the card's name and power limit.  Exits non-zero
-without a card or when a check fails.
+loops, so that each body can be multiplied by its trip count; B2's shared
+memory and blocks per SM in both instances, where the build reports them;
+whether B1's and B2's outputs and B3's output equal the first build's bit
+for bit; the two times of each kernel; and the card's name and power
+limit.  Exits non-zero without a card or when a check fails (another
+build's failed head-TF32 check is printed and its times are still taken).
 
 With ``--wide`` it takes the wide sweep pair B3w/B4w instead
 (``csrc/sweep_wide_fwd.cu``, ``sweep_wide_bwd.cu``), each build through its
@@ -92,6 +100,9 @@ WIDE_TIMES = ((20, "j"), (64, "j"), (100, "j"), (128, "j"), (128, "x_prop"))
 # timed at these (HP 32, 64, 128)
 TF32_WIDTHS = (20, 64, 128)
 TF32_TIMED = (32, 64, 128)
+# B1's and B2's head-TF32 instances: checked at these hidden widths, timed
+# at the first
+TF32_NARROW = (21, 8)
 # SASS classes: MUFU is the accurate tanhf's and expf's special-function
 # unit, LOP3 and IADD3 the integer halves of a TF32 rounding or split
 CLASSES = {"FFMA": "fp32", "FADD": "fp32", "FMUL": "fp32", "MUFU": "mufu",
@@ -345,6 +356,34 @@ def b2_on(op, inputs, res):
                                  res[3], cot, cot)
 
 
+def tf32_across(C, mods: dict, built: dict, model, kw, h: int,
+                what: str) -> None:
+    """The head-TF32 instances of each build at hidden ``h`` (N = 50 on
+    2^14 + 37 paths) through its own ``ops/rollout.py``: ``check_kernels``,
+    and whether B1's outputs equal the first build's bit for bit and B2's
+    on the first build's B1 residuals (``what`` names the pair)."""
+    order = list(built)
+    m, inputs = C.rollout_case(model, kw, h, C.N_STEPS, C.CHECK_BATCH)
+    outs, res = {}, None
+    for label in order:
+        op = mods[label].FusedRolloutOp(m, h, n_pieces=C.PIECES,
+                                        head_precision="default")
+        print(f"{label} head TF32 H={h} N={C.N_STEPS} B={C.CHECK_BATCH}:")
+        with rollout_of(mods[label], built[label]):
+            checked(label, C.check_kernels, op, m, inputs)
+            fwd, _ = C.kernel_calls(op, inputs)
+            outs[label] = fwd()
+            res = res or outs[label]
+            outs[label] = (*outs[label], b2_on(op, inputs, res))
+    b1, b2 = what.split("/")
+    for label in order:
+        same = [torch.equal(a, b) for a, b in
+                zip(outs[label], outs[order[0]])]
+        print(f"{label} head TF32 H={h}: {b1} outputs (x_N, y_N, xs, ys) "
+              f"bit-identical to {order[0]}'s: {all(same[:4])}; {b2}'s "
+              f"output on the same residuals: {same[4]}")
+
+
 def wide_rollout_ab(C, dirs: dict) -> None:
     """``--wide-rollout``: the wide rollout pair of each build through its
     own ``ops/rollout.py``: checks, float64 distances, kernel times and the
@@ -404,24 +443,7 @@ def wide_rollout_ab(C, dirs: dict) -> None:
     # the head-TF32 instances: checks, and their outputs across builds
     # (B2w's on the first build's B1w residuals)
     for h in TF32_WIDTHS:
-        m, inputs = C.rollout_case(model, kw, h, C.N_STEPS, C.CHECK_BATCH)
-        outs, res = {}, None
-        for label, op in ops(m, h, "default").items():
-            print(f"{label} head TF32 H={h} N={C.N_STEPS} "
-                  f"B={C.CHECK_BATCH}:")
-            with rollout_of(mods[label], built[label]):
-                checked(label, C.check_kernels, op, m, inputs)
-                fwd, _ = C.kernel_calls(op, inputs)
-                outs[label] = fwd()
-                res = res or outs[label]
-                outs[label] = (*outs[label], b2_on(op, inputs, res))
-        for label in order:
-            same = [torch.equal(a, b) for a, b in
-                    zip(outs[label], outs[order[0]])]
-            print(f"{label} head TF32 H={h}: B1w outputs (x_N, y_N, xs, ys) "
-                  f"bit-identical to {order[0]}'s: {all(same[:4])}; B2w's "
-                  f"output on the same residuals: {same[4]}")
-        del inputs, outs, res
+        tf32_across(C, mods, built, model, kw, h, "B1w/B2w")
 
     # kernel times, in turns
     for h in C.WIDE_WIDTHS:
@@ -558,6 +580,16 @@ def main() -> int:
     order = list(built)
     for label, csrc in dirs.items():
         print_build(label, csrc)
+    for label in order:
+        with using(built[label]):
+            for entry in ("rollout_bwd", "rollout_bwd_tf32"):
+                if not hasattr(built[label]["rollout_bwd"], f"{entry}_info"):
+                    continue
+                for h in TF32_NARROW:
+                    smem, blocks = C.occupancy("rollout_bwd", h, C.PIECES,
+                                               entry=entry)
+                    print(f"{label} {entry}<{h}>: {smem} bytes of shared "
+                          f"memory per block, {blocks} blocks per SM")
 
     # B1/B2: checks, and B1's outputs bit for bit across builds
     model, kw = C.speed_config()
@@ -577,6 +609,8 @@ def main() -> int:
         print(f"{label}: B1 outputs (x_N, y_N, xs, ys) bit-identical to "
               f"{order[0]}'s: {same}; B2's output: {same2}")
     del inputs, b1_outs, b2_outs
+    for h in TF32_NARROW:
+        tf32_across(C, mods, built, model, kw, h, "B1/B2")
 
     # B3/B4: checks, and B3's output bit for bit across builds
     outs = {}
@@ -593,19 +627,25 @@ def main() -> int:
                 for k in ("quadrature", "mc")]
         print(f"{label}: B3 output bit-identical to {order[0]}'s: {same}")
 
-    # times, in turns
+    # times of both instances, in turns
     m, inputs = C.rollout_case(model, kw, C.HIDDEN, C.N_STEPS, C.TRAIN_BATCH)
-    calls = {label: C.kernel_calls(mods[label].FusedRolloutOp(
-        m, C.HIDDEN, n_pieces=C.PIECES), inputs) for label in order}
-    times = {label: {"B1": [], "B2": []} for label in order}
-    for label in order + order + order[::-1]:
-        with using(built[label]):
-            fwd, bwd = calls[label]
-            times[label]["B1"].append(C.kernel_ms(fwd, 20))
-            times[label]["B2"].append(C.kernel_ms(bwd, 20))
-    for label in order:
-        t = {k: v[1:] for k, v in times[label].items()}
-        print(f"rollout N={C.N_STEPS} B={C.TRAIN_BATCH} H={C.HIDDEN} "
+    calls = {}
+    for mode in ("highest", "default"):
+        for label in order:
+            with using(built[label]):
+                calls[label, mode] = C.kernel_calls(
+                    mods[label].FusedRolloutOp(m, C.HIDDEN, n_pieces=C.PIECES,
+                                               head_precision=mode), inputs)
+    turns = list(calls)
+    times = {key: {"B1": [], "B2": []} for key in turns}
+    for key in turns + turns + turns[::-1]:
+        with using(built[key[0]]):
+            fwd, bwd = calls[key]
+            times[key]["B1"].append(C.kernel_ms(fwd, 20))
+            times[key]["B2"].append(C.kernel_ms(bwd, 20))
+    for (label, mode), t in times.items():
+        t = {k: v[1:] for k, v in t.items()}
+        print(f"rollout {mode} N={C.N_STEPS} B={C.TRAIN_BATCH} H={C.HIDDEN} "
               f"P={C.PIECES} {label}: B1 {t['B1'][0]:.4f} / {t['B1'][1]:.4f} "
               f"ms, B2 {t['B2'][0]:.4f} / {t['B2'][1]:.4f} ms")
     del inputs, calls

@@ -212,6 +212,21 @@ def test_wide_classes_and_tiles(h, hp, cap):
     assert R.b2_wide_blocks(2**17, h) == min(2**17 // 128, cap)
 
 
+@pytest.mark.parametrize("h,batch,fits", [
+    (20, 2**31 - 256, True), (20, 2**31 - 255, False),
+    (128, 2**31 - 256, True), (128, 2**31 - 255, False)])
+def test_wide_sizes_past_the_wide_b1_tile_raise(h, batch, fits):
+    """The wide B1's blocks take up to 256 paths (at HP 32), and its path
+    index is a 32-bit int up to the end of its last block, so a batch past
+    2^31 − 256 raises at every wide width before anything builds."""
+    if fits:
+        R._check_sizes(1, batch, h, 8)
+    else:
+        with pytest.raises(ValueError, match="32-bit"):
+            R._check_sizes(1, batch, h, 8)
+    assert "rollout_wide_fwd" not in _build._LOADED
+
+
 def test_wide_scalars_carry_r_dt():
     """The wide kernels take r·dt where the specialised ones take the growth
     1 + r·dt: rounded to f32 the growth is off by up to 6e-8 relative, the
