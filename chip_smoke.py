@@ -5,9 +5,10 @@
 Phases, each fatal on failure:
 1. build the CUDA kernels from ``deepfbsdejsolvers_torch/csrc`` with nvcc,
    all sources at once, and print each kernel's registers and spills
-   (ptxas) and B2's, B3's and B4's shared memory per block and resident
-   blocks per SM, the wide B1/B2 (``rollout_wide_*.cu``) and B3/B4
-   (``sweep_wide_*.cu``) per width class 32, 64 and 128;
+   (ptxas) and B1's, B2's, B3's and B4's shared memory per block and
+   resident blocks per SM (B1 and B2 in both instances), the wide B1/B2
+   (``rollout_wide_*.cu``) and B3/B4 (``sweep_wide_*.cu``) per width class
+   32, 64 and 128;
 2. hold each kernel against its plain PyTorch version on ragged batches:
    - B1's (x_N, y_N) and B2's gradients through ``FusedRollout`` at full
      width (hidden 21, N = 50, the real hoisted tables of the Merton speed
@@ -357,13 +358,13 @@ FUSE_LOSS_REL, FUSE_GRAD_REL = 1e-6, 1e-5
 # at 21 and 8, and N = 7 where B2w's blocks walk two and three tiles
 # ("walk"); the
 # fused speed path trained on TF32 heads at these widths; the kernels timed
-# at these (the wide pair at HP 32, 64 and 128)
+# at these (B1/B2 at 21 and 8, the wide pair at HP 32, 64 and 128)
 TF32_CHECKS = ((21, N_STEPS, CHECK_BATCH), (8, N_STEPS, CHECK_BATCH),
                (20, N_STEPS, CHECK_BATCH),
                (64, N_STEPS, CHECK_BATCH), (128, N_STEPS, CHECK_BATCH),
                (20, 7, "walk"), (128, 7, "walk"))
 TF32_TRAINED = (HIDDEN, 64, 128)
-TF32_TIMED = (21, 32, 64, 128)
+TF32_TIMED = (21, 8, 32, 64, 128)
 # the bench's opt-in flags, 2 warm-up and 1 timed epoch of 2 steps: the
 # adjoint and --rng rbg on the unfused speed cell (no kernel), the fused
 # cell's select precision (B1/B2 once a step)
@@ -2478,6 +2479,8 @@ def main() -> int:
                 ptxas.setdefault(f"{name} {fn}", []).append(line)
     occupancy_by = {}
     for name, entry, widths, pieces in (
+            ("rollout_fwd", None, (HIDDEN, 8), ()),
+            ("rollout_fwd", "rollout_fwd_tf32", (HIDDEN, 8), ()),
             ("rollout_bwd", None, (HIDDEN, 8), (PIECES,)),
             ("rollout_bwd", "rollout_bwd_tf32", (HIDDEN, 8), (PIECES,)),
             ("rollout_wide_fwd", None, (32, 64, 128), ()),

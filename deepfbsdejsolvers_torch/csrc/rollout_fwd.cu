@@ -30,6 +30,15 @@
 // The template flag TF is the head-TF32 mode (rollout_common.cuh
 // tf32_round): h1 and W2 enter the H×H layer rounded to TF32, the sums in
 // f32 in the same order.  Without it the kernel is the FP32 one, unchanged.
+//
+// Two paths a thread (256 a block, each float4 broadcast feeding both
+// paths' FMAs, every sum in the same order, the outputs this layout's bit
+// for bit) did not pay on an H100 80GB at 700 W, in either instance: at
+// H = 21 and B = 2^17 the pair issued 6% fewer instructions a path-step but
+// left 16 warps an SM, and the kernel, latency-bound there, ran 9-10%
+// slower; at H = 8 it ran 2-4% faster at 2^17 only, where both layouts
+// put at most 1024 paths on an SM, and 7-16% slower at 118272 and 65536
+// paths.
 #include "rollout_common.cuh"
 
 namespace rollout {
@@ -90,6 +99,25 @@ fwd_kernel(const float* __restrict__ dw, const float* __restrict__ jr,
 }
 
 template <int H, bool TF>
+cudaError_t info_fwd(int* smem, int* blocks_per_sm) {
+  *smem = (int)(sizeof(float) * Head<H>::SIZE);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fwd_kernel<H, TF>, FWD_THREADS, 0);
+}
+
+template <bool TF>
+int info_fwd_at(int hidden, int* smem, int* blocks_per_sm) {
+  switch (hidden) {
+    case 8:
+      return (int)info_fwd<8, TF>(smem, blocks_per_sm);
+    case 21:
+      return (int)info_fwd<21, TF>(smem, blocks_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int H, bool TF>
 cudaError_t launch_fwd(const float* dw, const float* jr, const float* cc,
                        const float* pc, const float* zc, const float* lo,
                        const float* hi, const float* w1, const float* b1,
@@ -139,4 +167,16 @@ extern "C" int rollout_fwd(const float* dw, const float* jr, const float* cc,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The kernel's static shared memory per block and its resident blocks per
+// SM at ``hidden`` (chip_smoke.py and kernel_ab.py report them), of the
+// FP32 instance and of the head-TF32 one.
+extern "C" int rollout_fwd_info(int hidden, int* smem, int* blocks_per_sm) {
+  return rollout::info_fwd_at<false>(hidden, smem, blocks_per_sm);
+}
+
+extern "C" int rollout_fwd_tf32_info(int hidden, int* smem,
+                                     int* blocks_per_sm) {
+  return rollout::info_fwd_at<true>(hidden, smem, blocks_per_sm);
 }

@@ -1,7 +1,8 @@
 """A/B of the port's CUDA kernels B1–B4, of the wide sweep pair or of the
 wide rollout pair, on one CUDA card.
 
-    python3 kernel_ab.py [--against DIR [DIR ...]] [--wide | --wide-rollout]
+    python3 kernel_ab.py [--against DIR [DIR ...]] [--batch B [B ...]]
+                         [--wide | --wide-rollout]
 
 Builds the four kernels (``csrc/rollout_fwd.cu``, ``rollout_bwd.cu``,
 ``sweep_fwd.cu``, ``sweep_bwd.cu``) of this checkout and, with
@@ -17,27 +18,42 @@ Each build is held against its plain version by ``chip_smoke.py``'s checks:
 B1/B2 by ``check_kernels`` on ``rollout_inputs`` at H = 21, N = 50 and
 2^14 + 37 paths; B3/B4 by ``check_sweep`` on the quadrature at 2^14 + 37
 paths and on 5000 Monte-Carlo nodes at 2^12 + 37.  Then all are timed by
-``chip_smoke.kernel_ms`` at the main paths' shapes (B = 2^17, H = 21; B1/B2
-at N = 50, P = 8; B3/B4 on the 49-node quadrature and 5000 Monte-Carlo
-nodes) in turns: one untimed turn in order while the card's clocks rise
-from idle, then in order and in reverse (A, B, B, A).
+``chip_smoke.kernel_ms`` at the main paths' shapes (B = 2^17, or each
+``--batch`` for B1/B2; B1/B2 at N = 50, P = 8, H = 21 and 8; B3/B4 at H = 21
+on the 49-node quadrature and 5000 Monte-Carlo nodes) in turns: one untimed
+turn in order while the card's clocks rise from idle, then in order and in
+reverse (A, B, B, A).
 
 B1's and B2's head-TF32 instances (``head_precision="default"``) go
 through the same at H = 21 and 8 (``TF32_NARROW``): ``check_kernels``,
 whose forward check runs step by step on B1's own trajectory
 (``tf32_step_errors``), whether B1 TF's outputs equal the first build's
-and B2 TF's on the first build's B1 TF residuals, and their times at
-H = 21 in the same turns as the FP32 instances'.
+and B2 TF's on the first build's B1 TF residuals, and their times in the
+same turns as the FP32 instances'.
 
 Prints each build's ptxas report; its SASS (``cuobjdump -sass``) counts per
 kernel, whole and per loop: every backward branch closes a loop, printed
 with its nesting depth and the counts of its body without its inner
-loops, so that each body can be multiplied by its trip count; B2's shared
-memory and blocks per SM in both instances, where the build reports them;
-whether B1's and B2's outputs and B3's output equal the first build's bit
-for bit; the two times of each kernel; and the card's name and power
-limit.  Exits non-zero without a card or when a check fails (another
-build's failed head-TF32 check is printed and its times are still taken).
+loops, so that each body can be multiplied by its trip count; whether each
+kernel's counts, whole and per loop, equal the first build's (kernels paired
+by name, width and instance); B1's registers, and B1's and B2's shared
+memory and blocks per SM, in both instances at H = 21 and 8, where the build
+has the info entries (``rollout_fwd_info``, ``rollout_bwd_info`` and their
+``_tf32`` forms); whether B1's and B2's outputs and B3's output equal the
+first build's bit for bit; the two times of each kernel; and the card's
+name and power limit.
+
+Exits 0 when every build passed every check, 2 without a card, and 1 when
+a check failed: this checkout's failure ends the run; another build's is
+printed and recorded, and its times are still taken.  The script leaves
+through ``os._exit`` once its output is flushed.  An earlier version
+exited with SIGSEGV (-11) after printing everything when two builds'
+libraries were loaded, so its code said nothing of its checks: the crash
+came in the teardown at exit, of the interpreter and of the libraries
+(each links its own static CUDA runtime).  It has not reproduced since,
+with two to four builds loaded, with a backtrace handler preloaded or
+without, nor with that earlier version, so its cause is not known; nothing
+the script needs happens in that teardown.
 
 With ``--wide`` it takes the wide sweep pair B3w/B4w instead
 (``csrc/sweep_wide_fwd.cu``, ``sweep_wide_bwd.cu``), each build through its
@@ -129,7 +145,11 @@ def ops_module(csrc: Path, name: str):
     if csrc == _build.CSRC:
         return importlib.import_module(f"deepfbsdejsolvers_torch.ops.{name}")
     path = csrc.parent / "ops" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"kernel_ab_{name}", path)
+    # a module name of its own for each version: chip_smoke.kernel_module
+    # finds an operator's wrappers by its class's module
+    tag = re.sub(r"\W", "_", str(csrc.parent.parent))
+    spec = importlib.util.spec_from_file_location(f"kernel_ab_{name}{tag}",
+                                                  path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
@@ -208,19 +228,49 @@ def loops(instrs):
     return out
 
 
-def print_build(label: str, csrc: Path, names=NAMES) -> None:
+def sass_key(mangled: str) -> str:
+    """A kernel's name and its first two template arguments (its width and
+    instance), by which its SASS is paired across builds, so that a
+    variant's further template argument (say, paths a thread) does not
+    split a pair."""
+    from chip_smoke import kernel_name
+
+    return re.sub(r"^(\w+<[^,>]+,[^,>]+),[^>]*>", r"\1>",
+                  kernel_name(mangled))
+
+
+def print_build(label: str, csrc: Path, names=NAMES) -> dict:
+    """Print a build's ptxas report and SASS counts; returns {(library,
+    ``sass_key``): (whole counts, [loop bodies' counts])}."""
     from chip_smoke import ptxas_lines
     from deepfbsdejsolvers_torch.ops import _build
 
+    out = {}
     for n in names:
         lib = _build.library_path(n, csrc)
         for fn, line in ptxas_lines(_build.ptxas_log(lib).read_text()):
             print(f"{label} {n} {fn}: {line}")
         for kernel, instrs in sass(lib).items():
             print(f"{label} sass {kernel[:48]}: {counts(instrs)}")
+            body = []
             for depth, start, end, c in loops(instrs):
                 print(f"{label}   {'  ' * depth}loop {start:#x}-{end:#x} "
                       f"(depth {depth}) body {c}")
+                body.append((depth, c))
+            out[n, sass_key(kernel)] = (counts(instrs), body)
+    return out
+
+
+def compare_sass(reports: dict) -> None:
+    """Whether each kernel's SASS counts, whole and per loop, equal the
+    first build's."""
+    first = next(iter(reports))
+    for label, rep in reports.items():
+        for key, (whole, body) in rep.items():
+            other = reports[first].get(key)
+            print(f"{label} sass {key[0]} {key[1]}: whole counts equal to "
+                  f"{first}'s: {other is not None and other[0] == whole}; "
+                  f"loop counts: {other is not None and other[1] == body}")
 
 
 def wide_ab(C, dirs: dict) -> None:
@@ -256,7 +306,7 @@ def wide_ab(C, dirs: dict) -> None:
         for label in order:
             print(f"{label} H={h} quadrature B={case[3]}:")
             with using(built[label]):
-                C.check_sweep(args, g, kernels=pairs[label])
+                checked(label, C.check_sweep, args, g, pairs[label])
         del args, g
     h, case = C.F64_CHECK
     args, g = C.sweep_inputs(h, case[0], case[3],
@@ -265,7 +315,7 @@ def wide_ab(C, dirs: dict) -> None:
     for label in order:
         print(f"{label} H={h} {case[1]} MC nodes B={case[3]}:")
         with using(built[label]):
-            C.check_sweep(args, g, kernels=pairs[label])
+            checked(label, C.check_sweep, args, g, pairs[label])
             C.f64_distances(args, g, kernels=pairs[label])
     del args, g
 
@@ -527,24 +577,31 @@ def version_label(path: str, i: int) -> str:
     return f"against{i}"
 
 
+# the builds that failed a check, by label: the exit code is non-zero if any
+FAILED = []
+
+
 def checked(label: str, fn, *args):
     """``fn(*args)`` (a ``chip_smoke.py`` check, which exits on a failure);
-    another build's failure is printed and its times are still taken, this
-    checkout's ends the run."""
+    another build's failure is printed and recorded and its times are still
+    taken, this checkout's ends the run."""
     try:
         return fn(*args)
     except SystemExit:
         if label == "this":
             raise
         print(f"{label}: FAILED the check above; its times are still taken")
+        FAILED.append(label)
         return None
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", nargs="+", default=[],
-                    help="other versions' csrc directories (--wide-rollout "
-                         "takes several)")
+                    help="other versions' csrc directories (all but "
+                         "--wide take several)")
+    ap.add_argument("--batch", type=int, nargs="+", default=None,
+                    help="paths at which B1/B2 are timed (default 2^17)")
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--wide", action="store_true",
                        help="A/B the wide sweep pair B3w/B4w instead of "
@@ -564,9 +621,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dirs = {"this": _build.CSRC}
-    if len(opts.against) > 1 and not opts.wide_rollout:
-        print("kernel_ab: only --wide-rollout takes several --against",
-              file=sys.stderr)
+    if len(opts.against) > 1 and opts.wide:
+        print("kernel_ab: --wide takes one --against", file=sys.stderr)
         return 2
     if opts.against:
         dirs = {**{version_label(d, i): Path(d).resolve()
@@ -574,14 +630,24 @@ def main() -> int:
     if opts.wide or opts.wide_rollout:
         (wide_ab if opts.wide else wide_rollout_ab)(C, dirs)
         print_smi()
-        return 0
+        return verdict()
     built = {label: build(csrc) for label, csrc in dirs.items()}
     mods = {label: ops_module(csrc, "rollout") for label, csrc in dirs.items()}
     order = list(built)
-    for label, csrc in dirs.items():
-        print_build(label, csrc)
+    compare_sass({label: print_build(label, csrc)
+                  for label, csrc in dirs.items()})
     for label in order:
         with using(built[label]):
+            for entry in ("rollout_fwd", "rollout_fwd_tf32"):
+                if not hasattr(built[label]["rollout_fwd"], f"{entry}_info"):
+                    continue
+                for h in TF32_NARROW:
+                    smem, blocks = C.occupancy("rollout_fwd", h, entry=entry)
+                    regs = ptxas_registers(dirs[label], h,
+                                           entry.endswith("tf32"))
+                    print(f"{label} {entry}<{h}>: {regs} registers, {smem} "
+                          f"bytes of static shared memory per block, "
+                          f"{blocks} blocks per SM")
             for entry in ("rollout_bwd", "rollout_bwd_tf32"):
                 if not hasattr(built[label]["rollout_bwd"], f"{entry}_info"):
                     continue
@@ -599,7 +665,7 @@ def main() -> int:
         op = mods[label].FusedRolloutOp(m, C.HIDDEN, n_pieces=C.PIECES)
         print(f"{label} rollout N={C.N_STEPS} B={C.CHECK_BATCH}:")
         with using(built[label]):
-            C.check_kernels(op, m, inputs)
+            checked(label, C.check_kernels, op, m, inputs)
             fwd, bwd = C.kernel_calls(op, inputs)
             b1_outs[label], b2_outs[label] = fwd(), bwd()
     for label in order:
@@ -620,35 +686,39 @@ def main() -> int:
         for label in order:
             print(f"{label} {node_set} B={batch}:")
             with using(built[label]):
-                C.check_sweep(args, g)
+                checked(label, C.check_sweep, args, g)
                 outs[label, node_set] = S.b3_forward(*args)
     for label in order:
         same = [torch.equal(outs[label, k], outs[order[0], k])
                 for k in ("quadrature", "mc")]
         print(f"{label}: B3 output bit-identical to {order[0]}'s: {same}")
 
-    # times of both instances, in turns
-    m, inputs = C.rollout_case(model, kw, C.HIDDEN, C.N_STEPS, C.TRAIN_BATCH)
-    calls = {}
-    for mode in ("highest", "default"):
-        for label in order:
-            with using(built[label]):
-                calls[label, mode] = C.kernel_calls(
-                    mods[label].FusedRolloutOp(m, C.HIDDEN, n_pieces=C.PIECES,
-                                               head_precision=mode), inputs)
-    turns = list(calls)
-    times = {key: {"B1": [], "B2": []} for key in turns}
-    for key in turns + turns + turns[::-1]:
-        with using(built[key[0]]):
-            fwd, bwd = calls[key]
-            times[key]["B1"].append(C.kernel_ms(fwd, 20))
-            times[key]["B2"].append(C.kernel_ms(bwd, 20))
-    for (label, mode), t in times.items():
-        t = {k: v[1:] for k, v in t.items()}
-        print(f"rollout {mode} N={C.N_STEPS} B={C.TRAIN_BATCH} H={C.HIDDEN} "
-              f"P={C.PIECES} {label}: B1 {t['B1'][0]:.4f} / {t['B1'][1]:.4f} "
-              f"ms, B2 {t['B2'][0]:.4f} / {t['B2'][1]:.4f} ms")
-    del inputs, calls
+    # times of both instances at both widths, in turns
+    for h, batch in [(h, b) for h in TF32_NARROW
+                     for b in opts.batch or (C.TRAIN_BATCH,)]:
+        m, inputs = C.rollout_case(model, kw, h, C.N_STEPS, batch)
+        calls = {}
+        for mode in ("highest", "default"):
+            for label in order:
+                with using(built[label]):
+                    calls[label, mode] = C.kernel_calls(
+                        mods[label].FusedRolloutOp(m, h, n_pieces=C.PIECES,
+                                                   head_precision=mode),
+                        inputs)
+        turns = list(calls)
+        times = {key: {"B1": [], "B2": []} for key in turns}
+        for key in turns + turns + turns[::-1]:
+            with using(built[key[0]]):
+                fwd, bwd = calls[key]
+                times[key]["B1"].append(C.kernel_ms(fwd, 20))
+                times[key]["B2"].append(C.kernel_ms(bwd, 20))
+        for (label, mode), t in times.items():
+            t = {k: v[1:] for k, v in t.items()}
+            print(f"rollout {mode} N={C.N_STEPS} B={batch} H={h} "
+                  f"P={C.PIECES} {label}: B1 {t['B1'][0]:.4f} / "
+                  f"{t['B1'][1]:.4f} ms, B2 {t['B2'][0]:.4f} / "
+                  f"{t['B2'][1]:.4f} ms")
+        del inputs, calls
     for node_set in ("quadrature", "mc"):
         args, g = C.sweep_inputs(C.HIDDEN, node_set, C.TRAIN_BATCH, 10)
         reps = 20 if node_set == "quadrature" else 3
@@ -667,7 +737,30 @@ def main() -> int:
                   f"{t['B4'][1]:.4f} ms")
         del args, g
     print_smi()
-    return 0
+    return verdict()
+
+
+def verdict() -> int:
+    """0 when every build passed every check, else 1 (this checkout's
+    failure has ended the run already)."""
+    if FAILED:
+        print(f"kernel_ab: checks failed for {sorted(set(FAILED))}")
+    return 1 if FAILED else 0
+
+
+def ptxas_registers(csrc: Path, h: int, tf32: bool) -> str:
+    """B1's registers at hidden ``h`` in an instance, from ``csrc``'s
+    build's ptxas report."""
+    from chip_smoke import ptxas_lines
+    from deepfbsdejsolvers_torch.ops import _build
+
+    log = _build.ptxas_log(_build.library_path("rollout_fwd", csrc))
+    want = f"fwd_kernel<{h},{'true' if tf32 else 'false'}"
+    for fn, line in ptxas_lines(log.read_text()):
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn.startswith(want):
+            return m.group(1)
+    return "?"
 
 
 def print_smi() -> None:
@@ -678,4 +771,9 @@ def print_smi() -> None:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    code = main()
+    # leave without the interpreter's and the libraries' teardown, so that
+    # the exit code is the checks' alone (module docstring)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
