@@ -1,0 +1,15 @@
+"""The benchmark's own tests: ``python3 -m pytest benchmark/tests`` on the
+CPU; the tests marked ``card`` need a CUDA card and skip without one
+(``python3 -m pytest benchmark/tests -m card`` on the card)."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips inside the test without one")
