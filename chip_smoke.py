@@ -1548,7 +1548,8 @@ def cli_phases(counters, tmp: str) -> dict:
                         "--profileDir", trace_dir], counters,
             {"B3": 3 * N_STEPS, "B4": 2 * N_STEPS},
             os.path.join(tmp, "profiled"))
-    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+              if f.startswith("trace_")]     # spans_*.json lies beside it
     sizes = [os.path.getsize(f) for f in traces]
     if not traces or min(sizes) == 0:
         fail(f"--profileDir wrote {traces} of sizes {sizes}")

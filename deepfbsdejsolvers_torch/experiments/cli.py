@@ -47,7 +47,9 @@ def _add_io_flags(p: argparse.ArgumentParser):
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in outdir")
     p.add_argument("--profileDir", type=str, default=None,
-                   help="capture a torch.profiler trace here")
+                   help="capture a torch.profiler trace here, and the "
+                        "training step's spans (span_summary and the raw "
+                        "spans, utils/profiling.py) beside it")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--debugNans", action="store_true",

@@ -29,6 +29,7 @@ from deepfbsdejsolvers_torch.ops.compensator import (
     compound_poisson_quadrature,
 )
 from deepfbsdejsolvers_torch.ops.numerics import mul_exp
+from deepfbsdejsolvers_torch.utils import profiling
 
 
 def abs_coupling(a_lin: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -179,6 +180,7 @@ class MertonJumpModel:
         return drift + self.sigma * dw + jump
 
     # ---- closed-form pricer --------------------------------------------------
+    @profiling.spanned("fbsde.price")
     def price(self, i, x: torch.Tensor) -> torch.Tensor:
         """Merton call price A(i·dt, x).  ``i`` is an int or an integer
         tensor that broadcasts against ``x``."""

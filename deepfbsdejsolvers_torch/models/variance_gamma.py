@@ -38,6 +38,7 @@ from deepfbsdejsolvers_torch.ops.compensator import (
 )
 from deepfbsdejsolvers_torch.ops.interp import uniform_interp_cubic
 from deepfbsdejsolvers_torch.ops.numerics import mul_exp
+from deepfbsdejsolvers_torch.utils import profiling
 
 _FFT_N = 2**15
 _FFT_B = 500.0
@@ -231,6 +232,7 @@ class VGModel:
         return (self.r - self._correction) * self._dt + jump
 
     # ---- pricers ------------------------------------------------------------
+    @profiling.spanned("fbsde.price")
     def price(self, i, x: torch.Tensor) -> torch.Tensor:
         """The call price A(i·dt, x); ``i`` is an int or an integer tensor
         that broadcasts against ``x``."""

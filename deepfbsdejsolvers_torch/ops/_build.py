@@ -17,8 +17,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, List, Sequence
+
+from deepfbsdejsolvers_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -96,10 +99,15 @@ def ptxas_log(library: Path) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, built on first use."""
+    """The built library of ``csrc/<name>.cu``, built on first use; the
+    seconds of that first use and the nvcc builds it ran go to the set-up
+    counter "setup.kernels" (``utils/profiling.py``)."""
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
+        t0 = time.perf_counter()
+        built = build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
+        profiling.setup_add("setup.kernels", time.perf_counter() - t0,
+                            builds=len(built), libraries=1)
     return lib

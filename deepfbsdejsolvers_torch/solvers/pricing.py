@@ -102,6 +102,7 @@ from deepfbsdejsolvers_torch.ops.scan import chunked_scan
 from deepfbsdejsolvers_torch.ops.sweep import (
     SWEEP_MAX_WIDTH, fused_sweep, rank1_three_feature, rank1_two_feature)
 from deepfbsdejsolvers_torch.parallel.data_parallel import psum
+from deepfbsdejsolvers_torch.utils import profiling
 
 PRICING_SCHEMES = ("global", "multistep1", "multistep2", "sumlocal1",
                    "sumlocal2", "sumlocal_reg", "multistep_reg")
@@ -574,6 +575,7 @@ class PricingSolver:
                              f") of shapes {want}, got {got}")
 
     # ------------------------------------------------- hoisted collocation
+    @profiling.spanned("fbsde.tables")
     def _hoist_tables(self, params, noise, shift_next: bool = False) -> dict:
         """Per-step tables {"lo", "hi", "cc"[, "pc"][, "zc"]} built outside
         the time loop from the first N rows of ``noise``.  The intervals
@@ -921,8 +923,9 @@ class PricingSolver:
         from_noise = self.build_loss_from_noise(batch, mesh)
 
         def loss(params, generator):
-            return from_noise(params, self._prenoise(generator, batch,
-                                                     self.noise_rows))
+            with profiling.span("fbsde.noise"):
+                noise = self._prenoise(generator, batch, self.noise_rows)
+            return from_noise(params, noise)
 
         return loss
 

@@ -27,6 +27,7 @@ import torch
 from deepfbsdejsolvers_torch.nets.mlp import param_leaves
 from deepfbsdejsolvers_torch.parallel.data_parallel import (
     all_ranks_true, all_reduce_grads, broadcast_params, make_dp_loss)
+from deepfbsdejsolvers_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -73,11 +74,30 @@ def cosine_decay_schedule(peak: float, steps: int) -> Callable[[int], float]:
     return lrate
 
 
+# The process's first optimizer and its first update pay torch's first-use
+# imports: each is timed once into the set-up counter "setup.optimizer".
+_UNTIMED = {"constructions": True, "first_steps": True}
+
+
+def _timed_once(part: str, fn: Callable):
+    """``fn()``, timed into "setup.optimizer" the first time ``part``
+    runs in this process."""
+    if not _UNTIMED[part]:
+        return fn()
+    _UNTIMED[part] = False
+    t0 = time.perf_counter()
+    out = fn()
+    profiling.setup_add("setup.optimizer", time.perf_counter() - t0,
+                        **{part: 1})
+    return out
+
+
 def make_adam(params, lrate: LearningRate) -> torch.optim.Adam:
     """Adam with eps=1e-7 at ``lrate``, or at its value for the first
     update when it is a schedule (``make_step`` sets it per update)."""
     lr = lrate(0) if callable(lrate) else lrate
-    return torch.optim.Adam(param_leaves(params), lr=lr, eps=1e-7)
+    return _timed_once("constructions", lambda: torch.optim.Adam(
+        param_leaves(params), lr=lr, eps=1e-7))
 
 
 def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
@@ -90,7 +110,9 @@ def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     before its backward, on every rank of a mesh if it is so on one.
     Under ``mesh`` the step is on the mesh-mean loss, which it returns:
     the backward of this rank's loss, then one all-reduce of the
-    gradients (``all_reduce_grads``)."""
+    gradients (``all_reduce_grads``).  The step is the span "fbsde.step",
+    its backward "fbsde.backward", and the optimizer's work (zeroing the
+    gradients, the update) "fbsde.optimizer" (``utils/profiling.py``)."""
     count = start_count
     leaves = param_leaves(params)
     for t in leaves:
@@ -98,25 +120,29 @@ def make_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
 
     def step(generator):
         nonlocal count
-        if lrate is not None:
-            for group in optimizer.param_groups:
-                group["lr"] = lrate(count)
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, generator)
-        if torch.is_anomaly_enabled():
-            finite = bool(torch.isfinite(loss))
+        with profiling.step("fbsde.step"):
+            with profiling.span("fbsde.optimizer"):
+                if lrate is not None:
+                    for group in optimizer.param_groups:
+                        group["lr"] = lrate(count)
+                optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(params, generator)
+            if torch.is_anomaly_enabled():
+                finite = bool(torch.isfinite(loss))
+                if mesh is not None:
+                    finite = all_ranks_true(finite, mesh)
+                if not finite:
+                    raise FloatingPointError(
+                        f"non-finite training loss {float(loss.detach())} "
+                        f"at update {count}")
+            with profiling.span("fbsde.backward"):
+                loss.backward()
             if mesh is not None:
-                finite = all_ranks_true(finite, mesh)
-            if not finite:
-                raise FloatingPointError(
-                    f"non-finite training loss {float(loss.detach())} at "
-                    f"update {count}")
-        loss.backward()
-        if mesh is not None:
-            loss = all_reduce_grads(leaves, loss, mesh)
-        optimizer.step()
-        count += 1
-        return loss.detach()
+                loss = all_reduce_grads(leaves, loss, mesh)
+            with profiling.span("fbsde.optimizer"):
+                _timed_once("first_steps", optimizer.step)
+            count += 1
+            return loss.detach()
 
     return step
 

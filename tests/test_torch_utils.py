@@ -1,7 +1,7 @@
 """The port's instruments (utils/profiling.py, utils/debug.py):
 ``trace_profile`` as a no-op without a directory and writing a
-``torch.profiler`` trace on the CPU, ``ThroughputMeter``'s arithmetic, and
-the NaN guard raising on a non-finite loss and on a NaN gradient, leaving
+``torch.profiler`` trace on the CPU (its spans: ``test_torch_tracing.py``),
+and the NaN guard raising on a non-finite loss and on a NaN gradient, leaving
 autograd's anomaly mode as it found it."""
 
 import json
@@ -11,10 +11,8 @@ import pytest
 import torch
 
 from deepfbsdejsolvers_torch.solvers.train import fit
-from deepfbsdejsolvers_torch.utils import profiling
 from deepfbsdejsolvers_torch.utils.debug import nan_guard
-from deepfbsdejsolvers_torch.utils.profiling import (
-    ThroughputMeter, trace_profile)
+from deepfbsdejsolvers_torch.utils.profiling import trace_profile
 
 
 def test_trace_profile_none_is_a_no_op(tmp_path, monkeypatch):
@@ -29,25 +27,11 @@ def test_trace_profile_writes_a_trace_on_the_cpu(tmp_path):
     logdir = tmp_path / "trace"
     with trace_profile(str(logdir)):
         torch.matmul(torch.ones(16, 16), torch.ones(16, 16)).sum()
-    files = list(logdir.iterdir())
-    assert len(files) == 1 and files[0].name.startswith("trace_")
-    events = json.loads(files[0].read_text())["traceEvents"]
+    files = sorted(p.name.split("_")[0] for p in logdir.iterdir())
+    assert files == ["spans", "trace"]
+    (trace,) = logdir.glob("trace_*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
-
-
-def test_throughput_meter_arithmetic(monkeypatch):
-    clock = iter([10.0, 12.5, 13.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    meter = ThroughputMeter(paths_per_step=1000, sde_steps=50, n_chips=2)
-    with pytest.raises(RuntimeError, match="start"):
-        ThroughputMeter(1, 1).mark(1)
-    meter.start()
-    out = meter.mark(5)
-    assert out["elapsed_s"] == 2.5
-    assert out["train_steps_per_sec"] == 2.0
-    assert out["paths_steps_per_sec"] == 1000 * 50 * 5 / 2.5
-    assert out["paths_steps_per_sec_per_chip"] == 1000 * 50 * 5 / 2.5 / 2
-    assert meter.mark(1)["elapsed_s"] == 0.5      # the next window
 
 
 def _fit(loss_fn, params, **kw):
