@@ -65,9 +65,11 @@ Phases, each fatal on failure:
    implies for the path, and the others never:
    - the speed path (``SolverGlobalFBSDE``, hoisted piecewise tables,
      ``fused_rollout=True``), 2 outer epochs of 10 Adam steps: B1 once a
-     step and once an evaluation, B2 once a step; the same at hidden
-     (64, 64) and (128, 128), 2 × 2 steps: B1w 6 and B2w 4 times, B1/B2
-     never;
+     step and once an evaluation, B2 once a step, the icdf jump kernel J
+     (``csrc/icdf_jumps.cu``) once a noise draw, so as B1; the same at
+     hidden (64, 64) and (128, 128), 2 × 2 steps: B1w and J 6 and B2w 4
+     times, B1/B2 never; J never on the exact samplers' paths (parity,
+     schemes, VG, the CLI's defaults) nor on the MFG model's;
    - the parity path (``SolverGlobalFBSDE(make_merton_default(), ...,
      sweep_impl="pallas")``, the 49-node quadrature swept at every path),
      2 × 10 steps: B3 at each of the 50 time steps of a step and of an
@@ -92,7 +94,9 @@ Phases, each fatal on failure:
 4. time a training step of each path (``cuda_ms``) and profile it, and
    time each kernel and its plain version the same way (``kernel_ms``:
    calls back to back between two CUDA events, after a warm-up) at the
-   path's shapes; B3/B4 also at 5000 Monte-Carlo nodes and on the two
+   path's shapes; J bit for bit its plain version at the fused benchmark
+   cell's (50, 2^20) (``icdf_phase``), with its time, the plain chain's
+   and the draws'; B3/B4 also at 5000 Monte-Carlo nodes and on the two
    pure-jump forms at the 96-node quadrature; the wide B3/B4 at batch 2^17
    on the 49- and 96-node sets at each of hidden 20, 64, 100, 128; the wide
    B1/B2 at N = 50, batch 2^17 at the same widths, and a step of the wide
@@ -135,7 +139,8 @@ Phases, each fatal on failure:
 8. run the accuracy gate ``merton_speed_fused`` through the port's gate
    runner at its registered budget (3 seeds × 2400 steps, batch 8192,
    warm Y0): it must pass (|Y0 − 0.271457| ≤ 1e-3 on every seed) and
-   launch B1 and B2 once per step;
+   launch B1 and B2 once per step, J once per step and once per warm
+   start's time step;
 9. data parallelism (``dp_phases``), ranks started by ``spawn`` on this
    one card (the kernels built once, in phase 1), each reporting its
    launches, losses and parameter digests, a rank still running after
@@ -322,15 +327,17 @@ WIDE_TRAIN_WIDTHS = (64, 128)
 # The bench (``python -m deepfbsdejsolvers_torch bench``, in this process):
 # (label, its arguments, each kernel's launches).  At bench.py's protocol,
 # 2 warm-up and 3 timed epochs of 10 steps at batch 2^17 (50 steps): the
-# speed cell (no kernel: the plain rollout), --fused (B1/B2 once a step)
-# and --parity (B3/B4 at each of the 50 time steps), the VG parity cell (the
-# plain sweep: bench.py builds it so); cut to 1 step an epoch, the MC-5000
-# parity cell (3 steps of 50 sweeps over 5000 nodes); cut to 2 steps an
-# epoch and 1 timed epoch, the VG speed and MFG cells (no kernel)
+# speed cell (the plain rollout; its icdf jumps through J once a step),
+# --fused (B1/B2 and J once a step) and --parity (B3/B4 at each of the 50
+# time steps), the VG parity cell (the plain sweep: bench.py builds it so);
+# cut to 1 step an epoch, the MC-5000 parity cell (3 steps of 50 sweeps
+# over 5000 nodes); cut to 2 steps an epoch and 1 timed epoch, the VG speed
+# and MFG cells (no kernel)
 BENCH_STEPS = 5 * 10
 BENCH_CELLS = (
-    ("speed", [], {}),
-    ("fused", ["--fused"], {"B1": BENCH_STEPS, "B2": BENCH_STEPS}),
+    ("speed", [], {"J": BENCH_STEPS}),
+    ("fused", ["--fused"], {"B1": BENCH_STEPS, "B2": BENCH_STEPS,
+                            "J": BENCH_STEPS}),
     ("parity", ["--parity"], {"B3": BENCH_STEPS * N_STEPS,
                               "B4": BENCH_STEPS * N_STEPS}),
     ("parity_mc5000", ["--parity", "--compensator", "mc", "--inner", "1",
@@ -366,13 +373,14 @@ TF32_CHECKS = ((21, N_STEPS, CHECK_BATCH), (8, N_STEPS, CHECK_BATCH),
 TF32_TRAINED = (HIDDEN, 64, 128)
 TF32_TIMED = (21, 8, 32, 64, 128)
 # the bench's opt-in flags, 2 warm-up and 1 timed epoch of 2 steps: the
-# adjoint and --rng rbg on the unfused speed cell (no kernel), the fused
-# cell's select precision (B1/B2 once a step)
+# adjoint and --rng rbg on the unfused speed cell (J once a step), the
+# fused cell's select precision (B1/B2 and J once a step)
 ITEM13_BENCH = (
-    ("adjoint", "module", ["--adjoint"], {}),
-    ("rng_rbg", "cli", ["--rng", "rbg"], {}),
+    ("adjoint", "module", ["--adjoint"], {"J": 6}),
+    ("rng_rbg", "cli", ["--rng", "rbg"], {"J": 6}),
     ("fused_precision_default", "cli", ["--fused", "--fusedPrecision",
-                                        "default"], {"B1": 6, "B2": 6}),
+                                        "default"],
+     {"B1": 6, "B2": 6, "J": 6}),
 )
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
 # FP32 outside the tensor cores, TF32 on them (dense), and HBM3 bandwidth.
@@ -1145,6 +1153,54 @@ def time_sweep(args, g, node_block=None) -> dict:
     return out
 
 
+ICDF_SHAPE = (N_STEPS, 2**20)     # the fused benchmark cell's J
+
+
+def icdf_phase() -> dict:
+    """The icdf jump kernel (``ops/noise.py``) at ``ICDF_SHAPE``: its J
+    bit for bit the plain version's at μJ = 0 and −0.1, then its time, the
+    plain version's, the two draws' (u and z) and its memory bound (12
+    bytes an element at 3.35 TB/s); the kernel table's row, to which
+    ``main`` adds the launches of the main paths."""
+    from deepfbsdejsolvers_torch.models.merton import make_merton_default
+    from deepfbsdejsolvers_torch.ops import noise
+
+    g = torch.Generator(device="cuda").manual_seed(2**31 + 17)
+    u = torch.rand(ICDF_SHAPE, generator=g, device="cuda")
+    z = torch.randn(ICDF_SHAPE, generator=g, device="cuda")
+    err = 0.0
+    for mu_j in (0.0, -0.1):
+        model = dataclasses.replace(make_merton_default(jump_sampler="icdf"),
+                                    muJ=mu_j)
+        cdf = model.tables("cpu")["poisson_cdf"]
+        got = noise.icdf_jumps(u, z, cdf, model.muJ, model.sigJ)
+        want = noise.icdf_jumps_plain(u, z, cdf.cuda(), model.muJ,
+                                      model.sigJ)
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"icdf_jumps differs from its plain version at μJ {mu_j} "
+                 f"(max |Δ| {err:.3e})")
+    args = (u, z, cdf, model.muJ, model.sigJ)
+    plain_args = (u, z, cdf.cuda(), model.muJ, model.sigJ)
+    ms = kernel_ms(lambda: noise.icdf_jumps(*args), reps=50)
+    plain_ms = kernel_ms(lambda: noise.icdf_jumps_plain(*plain_args), reps=10)
+    draws_ms = kernel_ms(lambda: (
+        torch.rand(ICDF_SHAPE, generator=g, device="cuda"),
+        torch.randn(ICDF_SHAPE, generator=g, device="cuda")), reps=10)
+    n = u.numel()
+    bound_ms = 12 * n / 3.35e12 * 1e3
+    print(f"icdf_jumps at {ICDF_SHAPE}: bit-identical at μJ 0 and −0.1; "
+          f"{ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.4f}, the "
+          f"draws u and z {draws_ms:.4f})")
+    return {"name": "icdf_jumps", "route": "cuda",
+            "source": "deepfbsdejsolvers_torch/csrc/icdf_jumps.cu",
+            "replaces": None, "check": "pass", "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms, "draws_ms": draws_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "shape": {"N": ICDF_SHAPE[0], "B": ICDF_SHAPE[1]}}
+
+
 def profile_steps(step, gen, step_ms: float, steps: int = 3,
                   names: list | None = None):
     """Device time per training step by kernel (torch.profiler), and the
@@ -1662,25 +1718,28 @@ class ShardMean:
                                        for g in self.shards]))
 
 
-def dp_counters() -> dict:
+def kernel_counters() -> dict:
+    """Every kernel's launch counter by its short name."""
+    from deepfbsdejsolvers_torch.ops import noise
     from deepfbsdejsolvers_torch.ops import rollout as R
     from deepfbsdejsolvers_torch.ops import sweep as S
 
     return {"B1": R.b1_forward, "B2": R.b2_backward,
             "B3": S.b3_forward, "B4": S.b4_backward,
             "B3w": S.b3_wide_forward, "B4w": S.b4_wide_backward,
-            "B1w": R.b1_wide_forward, "B2w": R.b2_wide_backward}
+            "B1w": R.b1_wide_forward, "B2w": R.b2_wide_backward,
+            "J": noise.icdf_jumps}
 
 
 def dp_reset() -> dict:
-    counters = dp_counters()
+    counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     return counters
 
 
 def dp_read() -> dict:
-    return {k: fn.launches for k, fn in dp_counters().items()}
+    return {k: fn.launches for k, fn in kernel_counters().items()}
 
 
 def dp_digest(params) -> str:
@@ -1985,7 +2044,7 @@ def dp_phases(counters) -> dict:
     if a["backend"] != "nccl" or not a["bit_identical"]:
         fail("dp (a): the NCCL world of one is not bit-identical to the "
              "run without a mesh")
-    want("a", a["launches"], B1=2 * 2 + 2, B2=2 * 2)
+    want("a", a["launches"], B1=2 * 2 + 2, B2=2 * 2, J=2 * 2 + 2)
     by_path["dp_a"] = a["launches"]
     out["a"] = {k: a[k] for k in ("backend", "losses", "y0", "launches")}
 
@@ -2003,8 +2062,9 @@ def dp_phases(counters) -> dict:
         if max(res["grads"]["rel"], res["grads"]["leaf_rel"]) > GRAD_REL_TOL:
             fail(f"dp (b) rank {r}: gradients off the serial ones")
         want(f"b, rank {r}, checks", res["check_launches"], B1=1 + 2,
-             B2=1 + 2)
-        want(f"b, rank {r}", res["launches"], B1=DP_STEPS, B2=DP_STEPS)
+             B2=1 + 2, J=1 + 2)
+        want(f"b, rank {r}", res["launches"], B1=DP_STEPS, B2=DP_STEPS,
+             J=DP_STEPS)
     if b[0]["digests"] != b[1]["digests"] or b[0]["losses"] != b[1]["losses"]:
         fail("dp (b): the ranks' params or losses differ after a step")
     by_path["dp_b"] = {k: sum(r["launches"][k] for r in b) for k in zero}
@@ -2107,8 +2167,9 @@ def dp_phases(counters) -> dict:
         want(f"d, rank {r}, merton", dict(zero, **passes["merton"]),
              B3=N_STEPS, B4=N_STEPS)
         want(f"d, rank {r}, speed_fused", dict(zero, **passes["speed_fused"]),
-             B1=1, B2=1)
-        for name in ("speed", "vg_speed", "mfg"):
+             B1=1, B2=1, J=1)
+        want(f"d, rank {r}, speed", dict(zero, **passes["speed"]), J=1)
+        for name in ("vg_speed", "mfg"):
             want(f"d, rank {r}, {name}", dict(zero, **passes[name]))
     by_path["dp_dryrun"] = {k: sum(p.get(k, 0) for r in dry["launches"]
                                    for p in r.values()) for k in zero}
@@ -2587,21 +2648,19 @@ def main() -> int:
     op = R.FusedRolloutOp(model, HIDDEN, n_pieces=PIECES)
 
     # 3. the main paths: training through the facade
-    counters = {"B1": R.b1_forward, "B2": R.b2_backward,
-                "B3": S.b3_forward, "B4": S.b4_backward,
-                "B3w": S.b3_wide_forward, "B4w": S.b4_wide_backward,
-                "B1w": R.b1_wide_forward, "B2w": R.b2_wide_backward}
+    counters = kernel_counters()
     print("speed path (hoisted tables, fused rollout):")
     trainer, launches = train_path(dict(kw, math_model=model),
-                                   {"B1": 1, "B2": 1}, {"B1": 1}, counters)
+                                   {"B1": 1, "B2": 1, "J": 1},
+                                   {"B1": 1, "J": 1}, counters)
     # the same at the wide widths: B1w/B2w, the specialised pair never
     wide_trainers, wide_launches = {}, {}
     for h in WIDE_TRAIN_WIDTHS:
         print(f"speed path at hidden ({h}, {h}) (fused rollout, B1w/B2w), "
               f"2 × 2 steps:")
         wide_trainers[h], wide_launches[h] = train_path(
-            dict(kw, math_model=model), {"B1w": 1, "B2w": 1}, {"B1w": 1},
-            counters, steps=2, epochs=2, hidden=h)
+            dict(kw, math_model=model), {"B1w": 1, "B2w": 1, "J": 1},
+            {"B1w": 1, "J": 1}, counters, steps=2, epochs=2, hidden=h)
     print("parity path (direct 49-node sweep, sweep_impl='pallas'):")
     parity, launches_p = train_path(
         dict(math_model=make_merton_default(), sweep_impl="pallas",
@@ -2652,6 +2711,7 @@ def main() -> int:
             hidden=h)
 
     # 4. timings at the paths' shapes
+    icdf = icdf_phase()
     step_ms, rate = time_step(trainer, 4, "speed")
     times = time_kernels(op, rollout_inputs(
         trainer.core, trainer.params, TRAIN_BATCH,
@@ -2756,7 +2816,11 @@ def main() -> int:
     gate = gates.run_entry(GATE, entry)
     by_path[GATE] = {k: fn.launches for k, fn in counters.items()}
     updates = entry["args"]["seeds"] * entry["args"]["steps"]
-    want = dict({k: 0 for k in counters}, B1=updates, B2=updates)
+    # a warm start draws J at each time step of one pass per seed
+    warm = (entry["args"]["seeds"] * entry["args"]["model"].N
+            if entry["args"].get("warm_y0") else 0)
+    want = dict({k: 0 for k in counters}, B1=updates, B2=updates,
+                J=updates + warm)
     print(f"gate {GATE}: launches {by_path[GATE]}")
     if not gate["pass_1e-3"]:
         fail(f"gate {GATE} failed: max |Y0 − oracle| {gate['abs_error']}")
@@ -2918,6 +2982,10 @@ def main() -> int:
             record[-1]["f64_distances"] = {
                 "H": ROLLOUT_F64_CHECK[0], "N": ROLLOUT_F64_CHECK[1],
                 "B": ROLLOUT_F64_CHECK[2], **rollout_f64}
+    # the icdf jump kernel: its launches on the speed path, and per path
+    icdf.update(launches=launches["J"],
+                launches_by_path={path: n["J"] for path, n in by_path.items()
+                                  if n.get("J")})
     # the head-TF32 instances: each kernel's row at the hidden width it
     # trained at (21 for B1/B2, 64 for B1w/B2w, which also trained at 128),
     # its error from the check there (B1w/B2w: at hidden 64), every timed
@@ -2957,6 +3025,7 @@ def main() -> int:
             "turns_ms": {"tf32": t["ms"], "highest": t["highest_ms"]},
             "shape": {"N": N_STEPS, "B": TRAIN_BATCH, "H": h, "P": PIECES},
             "by_width": by_width})
+    record.append(icdf)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": record, "train_step_ms": step_ms,
                       "paths_steps_per_s": rate,

@@ -36,11 +36,12 @@ BATCH = 8
 
 
 def _counters() -> dict:
+    from deepfbsdejsolvers_torch.ops import noise
     from deepfbsdejsolvers_torch.ops import rollout as R
     from deepfbsdejsolvers_torch.ops import sweep as S
 
     return {"B1": R.b1_forward, "B2": R.b2_backward, "B3": S.b3_forward,
-            "B4": S.b4_backward}
+            "B4": S.b4_backward, "J": noise.icdf_jumps}
 
 
 def _one_update(solver_or_loss, mesh, seed: int, device: str,

@@ -28,6 +28,7 @@ from deepfbsdejsolvers_torch.ops.compensator import (
     CompensatorSpec,
     compound_poisson_quadrature,
 )
+from deepfbsdejsolvers_torch.ops.noise import icdf_jumps
 from deepfbsdejsolvers_torch.ops.numerics import mul_exp
 from deepfbsdejsolvers_torch.utils import profiling
 
@@ -151,15 +152,17 @@ class MertonJumpModel:
 
     def sample_jumps(self, generator: torch.Generator, shape) -> torch.Tensor:
         """Compound-Poisson jump sum over one dt on ``generator``'s device:
-        J = dN·μJ + σJ·sqrt(dN)·N(0,1), dN ~ Poisson(λ dt)."""
+        J = dN·μJ + σJ·sqrt(dN)·N(0,1), dN ~ Poisson(λ dt).  The icdf
+        sampler draws u then z and forms J in ``ops/noise.icdf_jumps``
+        (one kernel on a card)."""
         device = generator.device
         if self.jump_sampler == "icdf":
             u = torch.rand(shape, generator=generator, device=device)
-            cdf = self.tables(device)["poisson_cdf"]
-            dn = (u[..., None] > cdf).sum(-1).to(torch.float32)
-        else:
-            rate = torch.full(shape, self.lam * self._dt, device=device)
-            dn = torch.poisson(rate, generator=generator)
+            z = torch.randn(shape, generator=generator, device=device)
+            return icdf_jumps(u, z, self.tables("cpu")["poisson_cdf"],
+                              self.muJ, self.sigJ)
+        rate = torch.full(shape, self.lam * self._dt, device=device)
+        dn = torch.poisson(rate, generator=generator)
         z = torch.randn(shape, generator=generator, device=device)
         return dn * self.muJ + self.sigJ * torch.sqrt(dn) * z
 

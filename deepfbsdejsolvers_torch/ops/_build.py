@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("rollout_fwd", "rollout_bwd", "rollout_wide_fwd",
                   "rollout_wide_bwd", "sweep_fwd", "sweep_bwd",
-                  "sweep_wide_fwd", "sweep_wide_bwd")
+                  "sweep_wide_fwd", "sweep_wide_bwd", "icdf_jumps")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
