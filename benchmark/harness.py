@@ -136,13 +136,16 @@ def check_layout(solver, cfg: dict, jump_diffusion: bool) -> None:
 # -------------------------------------------------------------------- faults
 def half_batch(solver, batch: int) -> Callable:
     """A broken loss for the fault check: it draws the whole batch's noise
-    and takes the mean over its first half only."""
-    from_noise = solver.build_loss_from_noise(batch // 2)
+    and takes the mean over its first half only.  The path columns of dW
+    and J are cut; a Monte-Carlo compensator's node draws, one row of
+    ``n_mc`` a step whatever the batch, are left whole."""
+    half = batch // 2
+    from_noise = solver.build_loss_from_noise(half)
 
     def loss(params, generator):
-        noise = solver._prenoise(generator, batch, solver.noise_rows)
-        return from_noise(params, tuple(
-            t[:, :batch // 2] if t.shape[1] else t for t in noise))
+        dw, j, *draws = solver._prenoise(generator, batch, solver.noise_rows)
+        return from_noise(params, (dw[:, :half] if dw.shape[1] else dw,
+                                   j[:, :half], *draws))
 
     return loss
 
@@ -324,8 +327,11 @@ class RunRecord:
 
 
 def node_count(wl: dict, cfg: dict) -> int:
-    """Nodes of the cell's compensator quadrature."""
+    """Nodes of the cell's compensator: its quadrature's, or a Monte-Carlo
+    compensator's draws a step."""
     comp = wl["solver"]["compensator"]
+    if comp.get("kind") == "mc":
+        return int(comp["n_mc"])
     if cfg["model"] == "merton":
         return 1 + int(comp["n_poisson_max"]) * int(comp["n_hermite"])
     return int(comp["n_laguerre"]) * int(comp["n_hermite"])

@@ -1,16 +1,19 @@
 """The reference's training steps of the global deep-BSDE scheme.
 
 ``Scheme`` holds a configuration's model and the cell's numerical method:
-the compensator's jump quadrature, and either the per-step evaluation
-(``hoist=False``: at each step Γ at the realized jump, the compensator by
-sweeping Γ over the quadrature at every path, the price by the model's
-pricer) or the hoisted tables (``hoist=True``: per step piecewise
-Chebyshev fits of the compensator, the price and the Z head on the
-uncoupled spot interval, read by each path).  ``loss_and_grads`` runs a
-step's loss and gradients in blocks of paths, so that it fits beside the
-program's footprint; the hoisted tables are built once from all paths and
-their cotangents summed over the blocks.  ``follow`` runs Adam's first
-steps from the same weights and generator state as the program.
+the compensator's jump quadrature or its Monte-Carlo draws, and either the
+per-step evaluation (``hoist=False``: at each step Γ at the realized jump,
+the compensator by sweeping Γ over the quadrature, or over the step's own
+``n_mc`` fresh draws of the jump law, at every path, the price by the
+model's pricer) or the hoisted tables (``hoist=True``, quadrature only: per
+step piecewise Chebyshev fits of the compensator, the price and the Z head
+on the uncoupled spot interval, read by each path).  ``loss_and_grads``
+runs a step's loss and gradients in blocks of paths, and a Monte-Carlo
+compensator in blocks of draws too, so that it fits beside the program's
+footprint; the hoisted tables are built once from all paths and their
+cotangents summed over the blocks.  ``follow`` runs Adam's first steps from
+the same weights and generator state as the program, each step's noise
+(dW, J, then the draws) redrawn as the program draws it.
 
 Parameters are a dict of heads, each {"W": [...], "b": [...], ("y0")},
 weights laid out (in, out): "uz" the Z net on (t, X) carrying Y0 in the
@@ -29,6 +32,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from benchmark.reference.models import MODELS
+
+# Path-draw pairs a block of the Monte-Carlo compensator evaluates at once
+# (a block's hidden activation, rows × 21 floats, ~1.4 GB).
+NODE_ROWS = 1 << 24
 
 
 @contextlib.contextmanager
@@ -137,8 +144,9 @@ def _check_supported(cfg: dict, model_opts: dict, solver: dict) -> None:
     """Refuse a cell whose method this reference does not compute, rather
     than compare it with another method: the global scheme, FP32 heads,
     the compensator over a quadrature, at every path per step or through
-    hoisted piecewise tables; a step's price by the series (Merton) or the
-    FFT curve read at every path (VG)."""
+    hoisted piecewise tables, or over each step's Monte-Carlo draws at
+    every path per step; a step's price by the series (Merton) or the FFT
+    curve read at every path (VG)."""
     hoist = bool(solver.get("hoist", False))
     unmet = []
     if solver.get("scheme") != "global":
@@ -146,8 +154,10 @@ def _check_supported(cfg: dict, model_opts: dict, solver: dict) -> None:
     if cfg.get("activation") != "tanh":
         unmet.append(f"activation {cfg.get('activation')!r}")
     comp = solver.get("compensator", {})
-    if comp.get("kind", "quadrature") != "quadrature":
-        unmet.append(f"compensator kind {comp.get('kind')!r}")
+    kind = comp.get("kind", "quadrature")
+    if kind not in ("quadrature", "mc") or (kind == "mc" and hoist):
+        unmet.append(f"compensator kind {kind!r}"
+                     + (" with hoisted tables" if hoist else ""))
     if hoist and solver.get("hoist_interp") != "piecewise":
         unmet.append("hoisted tables other than piecewise")
     if not hoist and comp.get("x_interp", "direct") != "direct":
@@ -174,7 +184,8 @@ def _check_supported(cfg: dict, model_opts: dict, solver: dict) -> None:
 class Scheme:
     """One cell's training step, planned from the configuration (``cfg``)
     and the cell's solver settings (``solver``: the program's keyword
-    names, read here as data)."""
+    names, read here as data).  ``block`` paths at a time; a Monte-Carlo
+    compensator ``NODE_ROWS // block`` draws at a time within them."""
 
     def __init__(self, cfg: dict, model_opts: dict, solver: dict, batch: int,
                  device, block: int = 1 << 16, tf32_products: bool = False):
@@ -188,7 +199,12 @@ class Scheme:
         self.tf32 = tf32_products
         self.hoist = bool(solver.get("hoist", False))
         comp = solver["compensator"]
-        if self.model.jump_diffusion:
+        self.n_mc = (int(comp["n_mc"]) if comp.get("kind") == "mc"
+                     else None)
+        if self.n_mc:
+            self.nodes = self.weights = None
+            self.node_block = max(1, NODE_ROWS // self.block)
+        elif self.model.jump_diffusion:
             self.nodes, self.weights = self.model.quadrature(
                 comp["n_poisson_max"], comp["n_hermite"], device)
         else:
@@ -205,7 +221,16 @@ class Scheme:
 
     @property
     def n_nodes(self) -> int:
-        return int(self.nodes.shape[0])
+        return self.n_mc or int(self.nodes.shape[0])
+
+    def draw(self, g: torch.Generator):
+        """One step's noise from ``g``, in the training step's order: (dW,
+        J), then with a Monte-Carlo compensator the (N, n_mc) jump draws of
+        every time step by the same sampler."""
+        dw, j = self.model.draw(g, self.batch)
+        if not self.n_mc:
+            return dw, j
+        return dw, j, self.model.jumps(g, (self.model.N, self.n_mc))
 
     # ---- heads ------------------------------------------------------------
     def _feature(self, x, j):
@@ -232,6 +257,24 @@ class Scheme:
         """Σ_m w_m·Γ(i, x, J_m) at every x."""
         sweep = self.gamma(params, i, x[None, :], self.nodes[:, None])
         return (self.weights[:, None] * sweep).sum(0)
+
+    def _draws_sum(self, params, i, x, draws):
+        """Σ_m Γ(i, x, J_m) over ``draws`` at every x, summed in float64."""
+        sweep = self.gamma(params, i, x[None, :], draws[:, None])
+        return sweep.sum(0, dtype=torch.float64)
+
+    def mc_compensator(self, params, i, x, draws):
+        """(1/M)·Σ_m Γ(i, x, J_m) at every x over the step's M draws, the
+        plain mean, ``node_block`` draws at a time, each block under
+        checkpoint: until the backward only its inputs and its (B,) sum
+        persist, and the backward replays one block at a time."""
+        total = None
+        for s in range(0, draws.shape[0], self.node_block):
+            part = checkpoint(self._draws_sum, params, i, x,
+                              draws[s:s + self.node_block],
+                              use_reentrant=False)
+            total = part if total is None else total + part
+        return (total / draws.shape[0]).to(x.dtype)
 
     # ---- hoisted tables -----------------------------------------------------
     def tables(self, params, dw, j):
@@ -277,16 +320,19 @@ class Scheme:
         return (torch.stack(basis, -1) * rows).sum(-1)
 
     # ---- one block of paths -------------------------------------------------
-    def _block_sse(self, params, tables, dw, j):
-        """Σ_b (Y_N − (X_N − K)⁺)² over one block's paths."""
+    def _block_sse(self, params, tables, dw, j, draws=None):
+        """Σ_b (Y_N − (X_N − K)⁺)² over one block's paths; ``draws`` the
+        (N, n_mc) Monte-Carlo draws, or None over the quadrature."""
         m = self.model
         x = torch.full((j.shape[1],), m.x0, device=j.device)
         y = self.y0(params) * torch.ones_like(x)
         for i in range(m.N):
             gam = self.gamma(params, i, x, j[i])
             if tables is None:
-                comp = checkpoint(self.compensator, params, i, x,
-                                  use_reentrant=False)
+                comp = (self.mc_compensator(params, i, x, draws[i])
+                        if draws is not None else
+                        checkpoint(self.compensator, params, i, x,
+                                   use_reentrant=False))
                 a = m.price(i, x)
                 zi = self.z(params, i, x) if m.jump_diffusion else None
             else:
@@ -301,9 +347,10 @@ class Scheme:
             x = m.step(x, dw[i] if m.jump_diffusion else None, j[i], y, a)
         return torch.sum(torch.square(y - torch.clamp(x - m.K, min=0.0)))
 
-    def loss_and_grads(self, params, dw, j):
-        """(loss, {leaf name: gradient}) of one training step on (dW, J),
-        in blocks of paths; the loss summed in float64."""
+    def loss_and_grads(self, params, dw, j, draws=None):
+        """(loss, {leaf name: gradient}) of one training step on (dW, J)
+        (and the Monte-Carlo ``draws``), in blocks of paths; the loss summed
+        in float64."""
         named = leaves(params)
         tensors = [t for _, t in named]
         total = torch.zeros((), dtype=torch.float64, device=j.device)
@@ -319,7 +366,7 @@ class Scheme:
             cols = slice(s, min(s + self.block, batch))
             sse = self._block_sse(
                 params, tab_leaves, dw[:, cols] if dw.shape[1] else dw,
-                j[:, cols]) / batch
+                j[:, cols], draws) / batch
             wrt = tensors + ([tab_leaves["cc"], tab_leaves["zc"]]
                              if self.hoist and "zc" in tab_leaves else
                              [tab_leaves["cc"]] if self.hoist else [])
@@ -375,9 +422,9 @@ def follow(scheme: Scheme, params0, gen_state, steps: int, cfg: dict):
     losses, first = [], None
     with full_f32():
         for _ in range(steps):
-            dw, j = scheme.model.draw(g, scheme.batch)
-            loss, grads = scheme.loss_and_grads(params, dw, j)
-            del dw, j
+            noise = scheme.draw(g)
+            loss, grads = scheme.loss_and_grads(params, *noise)
+            del noise
             losses.append(loss)
             if first is None:
                 first = {k: v.clone() for k, v in grads.items()}

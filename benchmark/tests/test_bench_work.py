@@ -1,5 +1,6 @@
 """The frozen work counts against ``chip_smoke.py``'s ``work()``, less the
-forward B2 and B4 recompute, at B = 2^17."""
+forward B2 and B4 recompute, at B = 2^17; the cells' compensator node
+counts, which the sweep rooflines and ``step_mfu`` read."""
 
 import importlib.util
 
@@ -63,3 +64,23 @@ def test_network_flops():
     wl, cfg = harness.load_cell("merton.fused_speed")
     assert work.step_network_flops(wl, cfg, B, 49) == (
         B * N * f3 + N * 64 * (49 * f3 + f2))
+
+
+@pytest.mark.parametrize("cell,nodes", [
+    ("merton.fused_speed", 49), ("merton.parity", 49), ("vg.parity", 96),
+    ("merton.parity_mc", 5000)])
+def test_node_count(cell, nodes):
+    assert harness.node_count(*harness.load_cell(cell)) == nodes
+
+
+def test_network_flops_at_a_monte_carlo_compensator():
+    wl, cfg = harness.load_cell("merton.parity_mc")
+    f3 = work.mlp_forward_flops(3, (21, 21), 1)
+    f2 = work.mlp_forward_flops(2, (21, 21), 1)
+    m = harness.node_count(wl, cfg)
+    assert work.step_network_flops(wl, cfg, 2 ** 16, m) == (
+        2 ** 16 * N * (5001 * f3 + f2))
+    # B3's and B4's bounds at M = 5000 and the cell's batch: operation-bound
+    for count in (work.sweep_fwd(m, 2 ** 16, 21),
+                  work.sweep_bwd(m, 2 ** 16, 21)):
+        assert work.bound_s(*count) == count[0] / work.PEAK_FP32_FLOPS

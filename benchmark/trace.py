@@ -6,9 +6,10 @@ launched it; failing that, its ``correlation`` names the runtime call,
 whose thread and time find the CPU ops that enclose it.  A device
 operation belongs to the layer (``layers/<name>.json``) one of whose op
 names is among the ops enclosing its launch, and to the eager layer
-otherwise.  The CUDA kernels of the port are all named ``fwd_kernel``,
-``bwd_kernel`` or ``reduce_partials``, so names alone cannot tell them
-apart: the launching op can.
+otherwise.  The port's CUDA kernels are told apart by their namespaces
+(``rollout::``, ``rollout_wide::``, ``sweep::``, ``sweep_wide::``,
+``icdf::``), but a name does not say which autograd op a launch served:
+the launching op does, so a layer is found by it and not by the name.
 """
 
 from __future__ import annotations
